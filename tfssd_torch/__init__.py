@@ -1,0 +1,48 @@
+"""tfssd_torch — the PyTorch/CUDA port of the SSD detection system.
+
+The JAX package beside it is the reference every module here is held
+against (tests/test_torch_*.py). This package imports torch, numpy and the
+standard library only. Its structure mirrors the JAX package's file names:
+
+  config.py            SSDConfig, get_hyper_params (plain copy)
+  ops/boxes.py         anchors, IoU, encode/decode, clip
+  ops/nms.py           combined per-class NMS
+  ops/kernels/         hand-written CUDA kernels, their plain versions, build
+  models/              MobileNetV2 trunk + extras, multibox head, SSD, decoder
+  utils/fold_bn.py     BatchNorm folding for serving
+  utils/convert.py     Flax variable tree (numpy) -> torch state_dict
+  data/                synthetic scenes, padding/batching
+  evaluate.py          VOC mAP
+  predict.py           the serving CLI (python -m tfssd_torch.predict)
+  profile_serving.py   where the serving time goes on the card
+
+Public functions keep the JAX package's layouts (NHWC images, (B, N, 4)
+boxes); modules inside are NCHW. Entry points run on "cuda" unless the
+caller passes device="cpu".
+"""
+
+import torch
+
+from tfssd_torch.config import SSDConfig, get_hyper_params  # noqa: F401
+
+__version__ = "0.1.0"
+
+# The port serves in float32 (SSDConfig.compute_dtype). cuDNN convolutions
+# default to TF32 on Hopper, which keeps about three decimal digits: turn it
+# off for convolutions and matmuls alike.
+torch.backends.cudnn.allow_tf32 = False
+torch.backends.cuda.matmul.allow_tf32 = False
+
+
+def resolve_device(device="cuda") -> torch.device:
+    """The device an entry point runs on. "cuda" (the default) needs a card
+    and raises without one: nothing falls back to the CPU unless the
+    caller asks for device="cpu"."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device is available; pass device='cpu' (--device cpu) "
+            "to run the plain CPU path")
+    if dev.type not in ("cuda", "cpu"):
+        raise ValueError(f"unsupported device {device!r}")
+    return dev

@@ -1,0 +1,60 @@
+"""Host-side batching: examples -> padded numpy batches (the serving part
+of the JAX package's data/loader.py: pad_gt, batch_examples, _collate).
+
+Ground truth is padded to the static `max_gt_boxes` rows with label 0;
+a short final batch is padded with zero images when not dropped. Images
+stay uint8 until the device (models/decoder.py:preprocess_images).
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Iterable, Iterator, Optional
+
+import numpy as np
+
+
+def pad_gt(boxes: np.ndarray, labels: np.ndarray, max_gt: int):
+    """Pad/truncate (G,4)/(G,) gt arrays to the static max_gt rows."""
+    g = min(len(labels), max_gt)
+    out_boxes = np.zeros((max_gt, 4), np.float32)
+    out_labels = np.zeros((max_gt,), np.int32)
+    out_boxes[:g] = boxes[:g]
+    out_labels[:g] = labels[:g]
+    return out_boxes, out_labels
+
+
+def batch_examples(dataset: Iterable[Dict], batch_size: int, max_gt: int,
+                   *, drop_remainder: bool = True
+                   ) -> Iterator[Dict[str, np.ndarray]]:
+    """Yield batches {'image' (B,S,S,3) uint8, 'boxes' (B,G,4) float32,
+    'labels' (B,G) int32, 'difficult' (B,G) bool, 'ids', 'num_valid'} in
+    dataset order, one pass."""
+    buf = []
+    for ex in dataset:
+        buf.append(ex)
+        if len(buf) == batch_size:
+            yield _collate(buf, max_gt)
+            buf = []
+    if buf and not drop_remainder:
+        yield _collate(buf, max_gt, pad_to=batch_size)
+
+
+def _collate(examples, max_gt: int, pad_to: Optional[int] = None):
+    n = len(examples)
+    total = pad_to or n
+    s = examples[0]["image"].shape[0]
+    images = np.zeros((total, s, s, 3), examples[0]["image"].dtype)
+    boxes = np.zeros((total, max_gt, 4), np.float32)
+    labels = np.zeros((total, max_gt), np.int32)
+    difficult = np.zeros((total, max_gt), bool)
+    ids = []
+    for i, ex in enumerate(examples):
+        images[i] = ex["image"]
+        boxes[i], labels[i] = pad_gt(ex["boxes"], ex["labels"], max_gt)
+        d = np.asarray(ex.get("difficult",
+                              np.zeros(len(ex["labels"]), bool)))
+        g = min(len(d), max_gt)
+        difficult[i, :g] = d[:g]
+        ids.append(ex.get("id", str(i)))
+    return {"image": images, "boxes": boxes, "labels": labels,
+            "difficult": difficult, "ids": ids, "num_valid": n}

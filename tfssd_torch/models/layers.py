@@ -1,0 +1,104 @@
+"""Shared model building blocks (port of the JAX package's models/layers.py).
+
+NCHW modules whose parameter names follow the Flax tree (ConvBN holds
+`conv` and `bn`), so utils/convert.py maps one onto the other by name.
+
+TF "SAME" padding is asymmetric for stride 2: at 300 input it pads (0, 1)
+for 300->150, 150->75, 38->19, 10->5 and 2->1, and (1, 1) for 75->38,
+19->10, 5->3 and 3->2. `SameConv2d` computes it from the input size; a
+symmetric `padding=1` would shift every sample. BatchNorm epsilon is 1e-3
+and momentum 0.01 (Flax's 0.99).
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+BN_EPSILON = 1e-3
+
+
+def same_padding(size: int, kernel: int, stride: int) -> Tuple[int, int]:
+    """(low, high) TF/Flax SAME padding of one spatial dimension."""
+    out = -(-size // stride)
+    total = max((out - 1) * stride + kernel - size, 0)
+    return total // 2, total - total // 2
+
+
+class SameConv2d(nn.Conv2d):
+    """nn.Conv2d with TF/Flax "SAME" padding, computed from the input size
+    at call time (construct it with nn.Conv2d's arguments, padding left
+    at 0)."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        (kh, kw), (sh, sw) = self.kernel_size, self.stride
+        ph = same_padding(x.shape[-2], kh, sh)
+        pw = same_padding(x.shape[-1], kw, sw)
+        if ph[0] == ph[1] and pw[0] == pw[1]:
+            return F.conv2d(x, self.weight, self.bias, self.stride,
+                            (ph[0], pw[0]), 1, self.groups)
+        x = F.pad(x, (pw[0], pw[1], ph[0], ph[1]))
+        return F.conv2d(x, self.weight, self.bias, self.stride, 0, 1,
+                        self.groups)
+
+
+class ConvBN(nn.Module):
+    """Conv -> BatchNorm -> ReLU6 (or no activation). With fold_bn the BN
+    affine is already folded into a biased conv (utils/fold_bn.py)."""
+
+    def __init__(self, in_channels: int, features: int, kernel: int = 3,
+                 stride: int = 1, groups: int = 1, act: bool = True,
+                 fold_bn: bool = False):
+        super().__init__()
+        self.conv = SameConv2d(in_channels, features, kernel, stride,
+                               groups=groups, bias=fold_bn)
+        self.bn: Optional[nn.BatchNorm2d] = (
+            None if fold_bn else
+            nn.BatchNorm2d(features, eps=BN_EPSILON, momentum=0.01))
+        self.act = act
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = self.conv(x)
+        if self.bn is not None:
+            x = self.bn(x)
+        return F.relu6(x) if self.act else x
+
+
+class InvertedResidual(nn.Module):
+    """MobileNetV2 block: 1x1 expand -> 3x3 depthwise -> 1x1 project, with
+    the residual add when stride is 1 and the widths match."""
+
+    def __init__(self, in_channels: int, features: int, stride: int = 1,
+                 expand_ratio: int = 6, fold_bn: bool = False):
+        super().__init__()
+        hidden = in_channels * expand_ratio
+        self.expand = (ConvBN(in_channels, hidden, 1, fold_bn=fold_bn)
+                       if expand_ratio != 1 else None)
+        self.depthwise = ConvBN(hidden, hidden, 3, stride, groups=hidden,
+                                fold_bn=fold_bn)
+        self.project = ConvBN(hidden, features, 1, act=False,
+                              fold_bn=fold_bn)
+        self.residual = stride == 1 and in_channels == features
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = self.expand(x) if self.expand is not None else x
+        y = self.project(self.depthwise(y))
+        return y + x if self.residual else y
+
+
+class ExtraFeatureBlock(nn.Module):
+    """SSD extra block: 1x1 reduce -> 3x3 stride-2 SAME downsample, each
+    ConvBN + ReLU6 (the MobileNetV2 extras; the VGG16 form, bias + ReLU
+    with VALID final stages, is not ported yet)."""
+
+    def __init__(self, in_channels: int, reduce_features: int, features: int,
+                 fold_bn: bool = False):
+        super().__init__()
+        self.reduce = ConvBN(in_channels, reduce_features, 1, fold_bn=fold_bn)
+        self.down = ConvBN(reduce_features, features, 3, 2, fold_bn=fold_bn)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.down(self.reduce(x))

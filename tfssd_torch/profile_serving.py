@@ -1,0 +1,125 @@
+"""Where the serving time goes on the card: one torch.profiler window.
+
+    python -m tfssd_torch.profile_serving [--batch-size 64] [--iters 10]
+
+Serves SSD300-MobileNetV2 at full width with seeded weights on
+device-resident uint8 synthetic images (uint8 -> NMSResult, as
+chip_smoke.py times it) and prints, per batch: the wall time (host clock
+around synchronised work), the device busy time (the sum of the CUDA
+kernels' device time in the window) and the idle share, the device time by
+kind of kernel, the heaviest kernels, and the NMS keep kernel's device time
+per launch. Needs a card: where the profiler records no device time it
+says "not measured".
+"""
+
+from __future__ import annotations
+
+import argparse
+import time
+from collections import defaultdict
+from typing import Optional, Sequence
+
+import numpy as np
+import torch
+from torch.profiler import ProfilerActivity, profile
+
+from tfssd_torch import predict
+from tfssd_torch.data.synthetic import SyntheticDataset
+from tfssd_torch.models.decoder import make_predict_fn
+
+# Kernel-name fragments -> kind, first match wins.
+_KINDS = (
+    ("nms_keep", "nms_keep (hand-written CUDA)"),
+    ("sort", "sort (prefilter, per-class top-K, merge)"),
+    ("Sort", "sort (prefilter, per-class top-K, merge)"),
+    ("conv", "convolution (cuDNN)"),
+    ("xmma", "convolution (cuDNN)"),
+    ("gemm", "convolution (cuDNN)"),
+    ("cudnn", "convolution (cuDNN)"),
+    ("winograd", "convolution (cuDNN)"),
+    ("gather", "gather / index"),
+    ("index", "gather / index"),
+    ("softmax", "softmax"),
+)
+
+
+def kind_of(name: str) -> str:
+    for frag, kind in _KINDS:
+        if frag in name:
+            return kind
+    return "elementwise / other"
+
+
+def main(argv: Optional[Sequence[str]] = None) -> None:
+    p = argparse.ArgumentParser(prog="python -m tfssd_torch.profile_serving")
+    p.add_argument("--batch-size", type=int, default=64)
+    p.add_argument("--iters", type=int, default=10)
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
+    args = p.parse_args(argv)
+
+    cfg, model = predict.load_model("mobilenet_v2", None, args.seed,
+                                    args.device)
+    device = next(model.parameters()).device
+    dataset = SyntheticDataset(predict.SYNTHETIC_EVAL_SIZE,
+                               image_size=cfg.img_size,
+                               seed=predict.SYNTHETIC_EVAL_SEED)
+    images = np.stack([dataset.example(i % len(dataset))["image"]
+                       for i in range(args.batch_size)])
+    x = torch.from_numpy(images).to(device)
+    predict_fn = make_predict_fn(model, predict.generate_anchors(cfg), cfg)
+    sync = (torch.cuda.synchronize if device.type == "cuda"
+            else (lambda: None))
+    for _ in range(3):
+        predict_fn(x)
+    sync()
+
+    activities = [ProfilerActivity.CPU]
+    if device.type == "cuda":
+        activities.append(ProfilerActivity.CUDA)
+    with profile(activities=activities) as prof:
+        t0 = time.perf_counter()
+        for _ in range(args.iters):
+            predict_fn(x)
+        sync()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / args.iters
+
+    by_kind = defaultdict(float)
+    kernels = []
+    for evt in prof.key_averages():
+        if evt.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        us = evt.self_device_time_total / args.iters
+        if us <= 0:
+            continue
+        kernels.append((us, evt.count / args.iters, evt.key))
+        by_kind[kind_of(evt.key)] += us
+    name = (torch.cuda.get_device_name(device) if device.type == "cuda"
+            else "cpu")
+    print(f"profile: batch {args.batch_size}, {args.iters} iterations, "
+          f"device={name}")
+    print(f"profile: wall {wall_ms:.3f} ms per batch "
+          f"({args.batch_size * 1e3 / wall_ms:.1f} img/s, profiler on)")
+    busy_ms = sum(by_kind.values()) / 1e3
+    if busy_ms == 0:
+        print("profile: device time not measured (the profiler recorded no "
+              "CUDA kernel)")
+        return
+    print(f"profile: device busy {busy_ms:.3f} ms per batch, idle share "
+          f"{max(0.0, 1 - busy_ms / wall_ms):.3f}")
+    for kind, us in sorted(by_kind.items(), key=lambda kv: -kv[1]):
+        print(f"profile: kind {kind}: {us / 1e3:.3f} ms per batch "
+              f"({us / 1e3 / busy_ms:.3f} of busy)")
+    for us, calls, key in sorted(kernels, reverse=True)[:12]:
+        print(f"profile: kernel {us:9.1f} us/batch {calls:6.1f} calls/batch "
+              f"{key[:110]}")
+    keep = [(us, calls) for us, calls, key in kernels if "nms_keep" in key]
+    if keep:
+        us, calls = keep[0]
+        print(f"profile: nms_keep device time {us / calls:.2f} us per launch "
+              f"at R={args.batch_size * (cfg.total_labels - 1)}, "
+              f"K={cfg.max_detections_per_class}")
+
+
+if __name__ == "__main__":
+    main()

@@ -4,13 +4,20 @@
 
 Phases, in order; any failure ends the run with a non-zero exit:
 
-  1. build  — nvcc builds every kernel of the serving path from
-              tfssd_torch/csrc/ into build/tfssd_torch/ (seconds printed).
+  1. build  — nvcc builds every kernel of the serving and training paths
+              from tfssd_torch/csrc/ into build/tfssd_torch/, all at once
+              (seconds, registers and shared memory printed).
   2. kernel — the NMS keep kernel on the real candidates of the path's
               first batch (R = 8 images x 20 classes, K = 200) and of a
               batch of 64, held bit-equal against its plain PyTorch version
               on the card; both kept and suppressed entries must occur.
-  3. path   — `python -m tfssd_torch.predict` (its main()) serves 32
+              The match/encode kernel on a real training batch (32
+              SyntheticDataset(seed=0) images augmented by the port on the
+              card; N = 2,268 anchors, G = 64): labels bit-equal to its
+              plain version, deltas within 1e-5 (both call logf, which is
+              not correctly rounded), positives and negatives present; the
+              same with force_match_for_gt.
+  3. path   — serving: `python -m tfssd_torch.predict` (its main()) serves 32
               synthetic images at batch 8 through SSD300-MobileNetV2 at
               full width with seeded weights; the kernel's launch counter is
               set to 0 just before and read just after. The card's
@@ -19,9 +26,25 @@ Phases, in order; any failure ends the run with a non-zero exit:
               the card's NMSResult against the CPU plain path fed the card's
               decoded boxes and scores (classes and valid equal, boxes and
               scores within 1e-6).
-  4. timing — img/s at batch 8 and 64 (device-resident uint8 images ->
-              NMSResult), the kernel's and the plain version's ms per call
-              at R = 160 and R = 1280, the card's name and power limit.
+              training: `python -m tfssd_torch.trainer` (its main()) at
+              full width, batch 32, 2 epochs x 3 steps with augmentation,
+              one validation batch per epoch, checkpoints under build/;
+              the match/encode launch counter is set to 0 just before and
+              must equal train steps + validation batches just after;
+              finite losses; a checkpoint written, and --resume continues
+              from its step. One train step (augmentation off, batch 8,
+              synthetic images and noise images under the same gts) from
+              the same seeded weights on the card and on the CPU: losses
+              and gradients held by STEP_GATES (float32 without TF32),
+              with a float64 CPU step as the witness of each one's
+              distance to the exact gradient and the same step in TF32
+              on the card as a control that the gates must refuse.
+  4. timing — serving img/s at batch 8 and 64 (device-resident uint8
+              images -> NMSResult); train ms/step and img/s at batch 32
+              (augmentation on, device-resident data); each kernel's and
+              its plain version's ms per call (nms_keep at R = 160 and
+              R = 1280, match_encode at B = 32, G = 64) beside its bound;
+              the card's name and power limit.
   5. the `kernels` JSON line, then the one-line JSON result, last.
 
 It exits non-zero without a result when no CUDA device is available, and
@@ -31,22 +54,30 @@ It writes nothing outside build/.
 
 from __future__ import annotations
 
+import dataclasses
 import json
+import math
+import shutil
 import subprocess
 import sys
+import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
 import torch
 
-from tfssd_torch import predict
+from tfssd_torch import predict, trainer
+from tfssd_torch.data.augment import augment_batch
+from tfssd_torch.data.loader import stage_arrays
 from tfssd_torch.data.synthetic import SyntheticDataset
 from tfssd_torch.models.decoder import (decode_boxes_and_scores,
                                         make_predict_fn, preprocess_images)
-from tfssd_torch.ops import nms
+from tfssd_torch.ops import matching, nms
 from tfssd_torch.ops.boxes import generate_anchors
-from tfssd_torch.ops.kernels import build
-from tfssd_torch.ops.kernels import nms_keep
+from tfssd_torch.ops.kernels import build, match_encode, nms_keep
+from tfssd_torch.train import (create_train_state, make_cached_train_step,
+                               make_lr_schedule, make_train_step)
 
 ROOT = Path(__file__).resolve().parent
 
@@ -58,9 +89,20 @@ F32_FLOP_PER_S = 67e12
 # 1 compare; areas and the scan are O(K) per instance and left out.
 OPS_PER_IOU = 15
 
+# Operations of one anchor-gt pair in match_encode: 4 max/min, 2
+# subtractions, 2 clamps, a multiply (intersection), an add and a
+# subtract (union), a clamp, a divide, the padding mask, the compare and
+# the argmax update; the encode is O(1) per anchor and left out.
+OPS_PER_MATCH = 16
+
 PATH_BATCH = 8
 PATH_IMAGES = 32
+TRAIN_BATCH = 32
+TRAIN_EPOCHS = 2
+TRAIN_STEPS = 3
+PARITY_BATCH = 8
 SEED = 0
+KERNELS = ("nms_keep", "match_encode")
 
 
 def section(name: str) -> None:
@@ -120,6 +162,267 @@ def keep_bound(r: int, k: int):
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
+def match_bound(b: int, n: int, g: int):
+    """(bound_ms, bound_by) of one match_encode call: anchors and gts read
+    once, deltas and labels written once; every anchor-gt pair gets one
+    IoU and compare."""
+    bytes_moved = n * 16 + b * g * (16 + 4) + b * n * (16 + 4)
+    ops = b * n * g * OPS_PER_MATCH
+    t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / F32_FLOP_PER_S * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def build_all() -> None:
+    """One nvcc per kernel source, all started together."""
+    with ThreadPoolExecutor(len(KERNELS)) as pool:
+        reports = list(pool.map(build.build_library, KERNELS))
+    for name, report in zip(KERNELS, reports):
+        print(f"build: {name} {'built' if report.built else 'already built'}"
+              f" in {report.seconds:.2f} s -> "
+              f"{report.path.relative_to(ROOT)}")
+        for line in report.log.splitlines():
+            if "registers" in line or "Compiling entry" in line:
+                print(f"  ptxas: {line.strip()}")
+
+
+def training_batch(cfg, device):
+    """The match/encode kernel's input on the training path: 32 images of
+    the trainer's SyntheticDataset(seed=0), augmented by the port on the
+    card -> (anchors, gt_boxes, gt_labels) on the card."""
+    ds = SyntheticDataset(TRAIN_BATCH, image_size=cfg.img_size, seed=0)
+    host, _ = stage_arrays(ds, cfg.max_gt_boxes)
+    images = torch.from_numpy(host["image"]).to(device).float() / 255.0
+    boxes = torch.from_numpy(host["boxes"]).to(device)
+    labels = torch.from_numpy(host["labels"]).to(device)
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    _, boxes, labels = augment_batch(gen, images, boxes, labels)
+    anchors = torch.from_numpy(generate_anchors(cfg)).to(device)
+    return anchors, boxes.contiguous(), labels.contiguous()
+
+
+def check_match_encode(cfg, anchors, boxes, labels) -> float:
+    """Kernel against plain on the card, threshold-only and with
+    force-match; returns the largest delta error."""
+    worst = 0.0
+    for force in (False, True):
+        fcfg = dataclasses.replace(cfg, force_match_for_gt=force)
+        got_d, got_l = match_encode.match_encode(anchors, boxes, labels,
+                                                 fcfg)
+        torch.cuda.synchronize()
+        want_d, want_l = matching.match_targets(
+            anchors, boxes, labels, fcfg.iou_threshold, fcfg.variances,
+            force)
+        err = float((got_d - want_d).abs().max())
+        pos = int((want_l > 0).sum())
+        print(f"kernel: match_encode B={labels.shape[0]} "
+              f"N={anchors.shape[0]} G={labels.shape[1]} force={force} "
+              f"labels_bit_equal={torch.equal(got_l, want_l)} "
+              f"max|delta err|={err:.3g} positives={pos} "
+              f"negatives={want_l.numel() - pos} "
+              f"gts={int((labels > 0).sum())}")
+        if not torch.equal(got_l, want_l):
+            raise AssertionError(f"match_encode labels differ (force={force})"
+                                 f": {int((got_l != want_l).sum())} anchors")
+        if err > 1e-5:
+            raise AssertionError(f"match_encode deltas differ: {err}")
+        if pos == 0 or pos == want_l.numel():
+            raise AssertionError("the batch has no positives or no negatives")
+        worst = max(worst, err)
+    return worst
+
+
+def train_path(cfg, device: str = "cuda") -> int:
+    """Drive the trainer at full width on the card, then resume it; return
+    the match_encode launches of the first run."""
+    out = ROOT / "build" / "chip_smoke_train"
+    common = ["--device", device, "--batch-size", str(TRAIN_BATCH),
+              "--dataset", "synthetic", "--synthetic-size", "256",
+              "--steps-per-epoch", str(TRAIN_STEPS), "--val-limit", "1",
+              "--seed", str(SEED), "--log-every", "1",
+              "--model-dir", str(out / "model"),
+              "--log-dir", str(out / "logs")]
+    if out.exists():
+        shutil.rmtree(out)
+    match_encode.LAUNCHES = 0
+    run = trainer.main(["--epochs", str(TRAIN_EPOCHS)] + common)
+    torch.cuda.synchronize()
+    launches = match_encode.LAUNCHES
+    want = run.steps_run + run.val_batches
+    print(f"path: trainer ran {run.steps_run} steps and {run.val_batches} "
+          f"validation batches, match_encode launches={launches}, "
+          f"val_losses={run.val_losses}, e2e img/s={run.e2e_img_per_s}")
+    if launches != want:
+        raise AssertionError(f"match_encode launched {launches} times for "
+                             f"{want} train steps + val batches")
+    losses = [m["loss"] for m in run.train_metrics] + list(
+        run.val_losses.values())
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"non-finite loss: {losses}")
+    from tfssd_torch.utils.checkpoint import CheckpointManager
+    latest = CheckpointManager(run.model_path).latest_step()
+    if latest != run.state.step:
+        raise AssertionError(f"latest checkpoint {latest}, trained to step "
+                             f"{run.state.step}")
+    resumed = trainer.main(["--epochs", str(TRAIN_EPOCHS + 1), "--resume"]
+                           + common)
+    print(f"path: --resume from step {latest} ran {resumed.steps_run} steps "
+          f"to step {resumed.state.step}")
+    if (resumed.steps_run != TRAIN_STEPS
+            or resumed.state.step != latest + TRAIN_STEPS):
+        raise AssertionError("--resume did not continue from the checkpoint")
+    return launches
+
+
+def _one_train_step(cfg, device: str, host, dtype=torch.float32,
+                    tf32: bool = False):
+    """(metrics, {name: gradient on the CPU}) of one train step without
+    augmentation from the seeded weights, on `device`, with the model in
+    `dtype` (the images scaled by /255 in float32, as the step does) and
+    cuDNN and matmuls in TF32 if `tf32`."""
+    dev = torch.device(device)
+    state = create_train_state(cfg, SEED, dev, make_lr_schedule(TRAIN_STEPS))
+    state.model.to(dtype)
+    anchors = torch.from_numpy(generate_anchors(cfg)).to(dev)
+    step = make_train_step(anchors, cfg, augment=False)
+    batch = {k: torch.from_numpy(host[k]).to(dev)
+             for k in ("image", "boxes", "labels")}
+    batch["image"] = (batch["image"].float() / 255.0).to(dtype)
+    flags = torch.backends.cudnn, torch.backends.cuda.matmul
+    saved = [f.allow_tf32 for f in flags]
+    for f in flags:
+        f.allow_tf32 = tf32
+    try:
+        metrics = step(state, batch)
+    finally:
+        for f, v in zip(flags, saved):
+            f.allow_tf32 = v
+    return ({k: float(v) for k, v in metrics.items()},
+            {n: p.grad.double().cpu()
+             for n, p in state.model.named_parameters()})
+
+
+def _rel_norm(got, want, names) -> float:
+    g = torch.cat([got[n].reshape(-1) for n in names])
+    w = torch.cat([want[n].reshape(-1) for n in names])
+    return float((g - w).norm() / w.norm())
+
+
+# Gates of the card-vs-CPU train step, each near the geometric mean of the
+# largest reading of the sound float32 step and the smallest reading of a
+# control that computes less exactly (the same step with TF32 convolutions
+# and matmuls on the card), over noise and synthetic images (this script
+# on an NVIDIA H100 80GB HBM3 at 700 W; PERF.md): relative loss error 2.5e-7 /
+# 1.8e-4; head gradient in relative norm 2.0e-6 / 1.7e-2; whole gradient
+# 6.2e-3 / 0.25; the card's distance to the float64 CPU step over the
+# float32 CPU step's 1.6 / 59.
+STEP_GATES = {"loss": 1e-5, "head": 2e-4, "whole": 4e-2, "to_f64": 10.0}
+
+
+def _step_readings(cfg, card: str, host) -> dict:
+    """One train step of `host` on the card (float32, and TF32 as the
+    control) and on the CPU (float32 and the float64 witness)."""
+    steps = {"card": _one_train_step(cfg, card, host),
+             "tf32": _one_train_step(cfg, card, host, tf32=True),
+             "cpu": _one_train_step(cfg, "cpu", host),
+             "f64": _one_train_step(cfg, "cpu", host, torch.float64)}
+    names = sorted(steps["cpu"][1])
+    head = [n for n in names if n.startswith("head.")]
+    out = {}
+    for run in ("card", "tf32"):
+        m, g = steps[run]
+        want_m, want_g = steps["cpu"]
+        f64_g = steps["f64"][1]
+        out[run] = {
+            "loss": max(abs(m[k] - want_m[k]) / abs(want_m[k])
+                        for k in ("loss", "loc_loss", "conf_loss")),
+            "num_pos": m["num_pos"] == want_m["num_pos"],
+            "head": _rel_norm(g, want_g, head),
+            "whole": _rel_norm(g, want_g, names),
+            "to_f64": (_rel_norm(g, f64_g, names)
+                       / _rel_norm(want_g, f64_g, names))}
+    out["by_depth"] = {
+        grp: _rel_norm(steps["card"][1], steps["cpu"][1],
+                       [n for n in names if n.startswith(grp)])
+        for grp in ("backbone.extra", "backbone.head_conv",
+                    "backbone.block16", "backbone.block8.",
+                    "backbone.block0.", "backbone.stem")}
+    out["cpu_to_f64"] = {"head": _rel_norm(steps["cpu"][1], steps["f64"][1],
+                                           head),
+                         "whole": _rel_norm(steps["cpu"][1],
+                                            steps["f64"][1], names)}
+    out["losses"] = {run: steps[run][0]["loss"] for run in steps}
+    return out
+
+
+def _refused(reading: dict) -> list:
+    """The gates of STEP_GATES that `reading` fails."""
+    failed = [k for k in ("loss", "head", "whole", "to_f64")
+              if reading[k] > STEP_GATES[k]]
+    return failed + ([] if reading["num_pos"] else ["num_pos"])
+
+
+def train_step_card_vs_cpu(cfg, card: str = "cuda") -> dict:
+    """One train step, augmentation off, from the same seeded weights and
+    batch on the card (kernel) and on the CPU (plain), on two batches: the
+    images of SyntheticDataset(seed=0) and seeded uniform noise under the
+    same gts. Flat synthetic rectangles make neighbouring anchors' losses
+    tie exactly in the hard-negative ranking, where a rounding difference
+    moves the gradient to another anchor of the same loss; noise has no
+    such ties. At random weights BatchNorm grows rounding differences from
+    the head towards the stem, so the whole gradient is held looser than
+    the head's. A float64 CPU step is the witness that the card is as far
+    from the exact gradient as the float32 CPU is; the same step with TF32
+    on the card is the control that the gates must refuse."""
+    ds = SyntheticDataset(PARITY_BATCH, image_size=cfg.img_size, seed=0)
+    synthetic, _ = stage_arrays(ds, cfg.max_gt_boxes)
+    noise = dict(synthetic, image=np.random.default_rng(SEED).integers(
+        0, 256, synthetic["image"].shape, dtype=np.uint8))
+    readings = {}
+    for kind, host in (("noise", noise), ("synthetic", synthetic)):
+        r = readings[kind] = _step_readings(cfg, card, host)
+        print(f"path: train step card vs cpu ({kind} images, batch "
+              f"{PARITY_BATCH}, no augmentation): losses "
+              + ", ".join(f"{k} {v:.6f}" for k, v in r["losses"].items())
+              + "; float32 card: " + json.dumps(r["card"])
+              + "; TF32 control: " + json.dumps(r["tf32"])
+              + "; cpu float32 vs float64: " + json.dumps(r["cpu_to_f64"])
+              + "; card vs cpu by depth: " + json.dumps(r["by_depth"]))
+        failed = _refused(r["card"])
+        if failed:
+            raise AssertionError(f"train step card vs cpu ({kind}): "
+                                 f"{failed} beyond {STEP_GATES}")
+    for kind, r in readings.items():
+        missed = set(STEP_GATES) - set(_refused(r["tf32"]))
+        if missed:
+            raise AssertionError(f"the TF32 control ({kind}) passes the "
+                                 f"gates {sorted(missed)}: they cannot see "
+                                 f"a less exact step")
+    return readings
+
+
+def time_train_step(cfg, device) -> float:
+    """ms per train step at batch 32, augmentation on, device-resident
+    data (host clock around synchronised steps)."""
+    ds = SyntheticDataset(256, image_size=cfg.img_size, seed=0)
+    host, n = stage_arrays(ds, cfg.max_gt_boxes)
+    data = {k: torch.from_numpy(host[k]).to(device)
+            for k in ("image", "boxes", "labels")}
+    state = create_train_state(cfg, SEED, device, make_lr_schedule(100))
+    anchors = torch.from_numpy(generate_anchors(cfg)).to(device)
+    step = make_cached_train_step(anchors, cfg, augment=True, seed=SEED)
+    rows = torch.from_numpy(trainer.epoch_indices(
+        SEED, 0, n, 13, TRAIN_BATCH)).to(device)
+    for i in range(3):
+        step(state, data, rows[i])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(3, 13):
+        step(state, data, rows[i])
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / 10
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -130,12 +433,7 @@ def main() -> int:
           f"{torch.version.cuda}, {torch.cuda.device_count()} visible")
 
     section("1. build")
-    report = build.build_library("nms_keep")
-    print(f"build: nms_keep {'built' if report.built else 'already built'} "
-          f"in {report.seconds:.2f} s -> {report.path.relative_to(ROOT)}")
-    for line in report.log.splitlines():
-        if "registers" in line or "Compiling entry" in line:
-            print(f"  ptxas: {line.strip()}")
+    build_all()
 
     section("2. kernel")
     cfg, model = predict.load_model("mobilenet_v2", None, SEED, device)
@@ -167,6 +465,8 @@ def main() -> int:
             raise AssertionError("the candidates exercise no suppression")
         cands[r] = (boxes, scores)
         parity[r] = err
+    m_anchors, m_boxes, m_labels = training_batch(cfg, device)
+    match_err = check_match_encode(cfg, m_anchors, m_boxes, m_labels)
 
     section("3. path")
     nms_keep.LAUNCHES = 0
@@ -226,6 +526,8 @@ def main() -> int:
         if box_err > 1e-6 or score_err > 1e-6:
             raise AssertionError(f"batch {b}: boxes/scores differ")
     del cpu_model
+    match_launches = train_path(cfg)
+    train_step_card_vs_cpu(cfg)
 
     section("4. timing")
     predict_fn = make_predict_fn(run.model, run.anchors, run.config)
@@ -244,6 +546,19 @@ def main() -> int:
         rows[r] = (ms, plain, bound, bound_by)
         print(f"timing: nms_keep R={r} K={k}: kernel {ms:.5f} ms/call, plain "
               f"{plain:.5f} ms/call, bound {bound:.6f} ms ({bound_by})")
+    step_ms = time_train_step(cfg, device)
+    print(f"timing: train {step_ms:.3f} ms per step, "
+          f"{TRAIN_BATCH * 1e3 / step_ms:.1f} img/s at batch {TRAIN_BATCH} "
+          f"(augmentation on, device-resident uint8 data)")
+    args = (m_anchors, m_boxes, m_labels, cfg.iou_threshold, cfg.variances)
+    me_ms = time_ms(lambda: match_encode.match_encode_cuda(*args), 200)
+    me_plain = time_ms(lambda: matching.match_targets(*args), 20)
+    b, g = m_labels.shape
+    n = m_anchors.shape[0]
+    me_bound, me_bound_by = match_bound(b, n, g)
+    print(f"timing: match_encode B={b} N={n} G={g}: kernel {me_ms:.5f} "
+          f"ms/call, plain {me_plain:.5f} ms/call, bound {me_bound:.6f} ms "
+          f"({me_bound_by})")
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"],
@@ -266,7 +581,17 @@ def main() -> int:
         "ms_R1280": rows[r_big][0], "plain_ms_R1280": rows[r_big][1],
         "bound_ms_R1280": rows[r_big][2],
     }
-    print(json.dumps({"kernels": [entry]}))
+    match_entry = {
+        "name": "match_encode", "route": "cuda",
+        "source": "tfssd_torch/csrc/match_encode.cu",
+        "replaces": reference_site("ops/kernels/match_encode.py",
+                                   "match_encode_pallas"),
+        "launches": match_launches, "max_abs_err": match_err,
+        "ms": me_ms, "plain_ms": me_plain, "bound_ms": me_bound,
+        "bound_by": me_bound_by, "library_ms": None,
+        "labels_bit_equal": True, "shape": f"B={b},N={n},G={g}",
+    }
+    print(json.dumps({"kernels": [entry, match_entry]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}), flush=True)

@@ -25,9 +25,15 @@ import sys
 for name in {BLOCKED!r}:
     sys.modules[name] = None
 import importlib, pkgutil
-import tfssd_torch, tfssd_torch.predict, chip_smoke
+import tfssd_torch, tfssd_torch.predict, tfssd_torch.trainer, chip_smoke
 for mod in pkgutil.walk_packages(tfssd_torch.__path__, "tfssd_torch."):
     importlib.import_module(mod.name)
+# the training slice's modules, named so that a rename cannot drop them
+for name in ("ops.matching", "ops.kernels.match_encode", "ops.losses",
+             "data.augment", "data.loader", "train", "trainer",
+             "profile_train", "utils.checkpoint", "utils.metrics",
+             "utils.io", "utils.convert"):
+    assert "tfssd_torch." + name in sys.modules, name
 leaked = sorted(n for n in sys.modules
                 if n.split(".")[0] in {BLOCKED!r} and sys.modules[n] is not None)
 assert not leaked, leaked

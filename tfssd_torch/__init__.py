@@ -7,14 +7,23 @@ standard library only. Its structure mirrors the JAX package's file names:
   config.py            SSDConfig, get_hyper_params (plain copy)
   ops/boxes.py         anchors, IoU, encode/decode, clip
   ops/nms.py           combined per-class NMS
+  ops/matching.py      gt matching + target encoding (plain version)
+  ops/losses.py        hard-negative-mined SSD loss
   ops/kernels/         hand-written CUDA kernels, their plain versions, build
   models/              MobileNetV2 trunk + extras, multibox head, SSD, decoder
   utils/fold_bn.py     BatchNorm folding for serving
-  utils/convert.py     Flax variable tree (numpy) -> torch state_dict
-  data/                synthetic scenes, padding/batching
+  utils/convert.py     Flax variables / TrainState (numpy) -> torch
+  utils/checkpoint.py  torch.save checkpoints, best-3 retention, resume
+  utils/metrics.py     JSONL metrics log
+  utils/io.py          CLI arguments, model and log paths
+  data/                synthetic scenes, padding/batching, staging,
+                       augmentation on the device
+  train.py             train state, train/eval steps, LR schedule
   evaluate.py          VOC mAP
   predict.py           the serving CLI (python -m tfssd_torch.predict)
+  trainer.py           the training CLI (python -m tfssd_torch.trainer)
   profile_serving.py   where the serving time goes on the card
+  profile_train.py     where a train step's time goes on the card
 
 Public functions keep the JAX package's layouts (NHWC images, (B, N, 4)
 boxes); modules inside are NCHW. Entry points run on "cuda" unless the

@@ -1,13 +1,18 @@
-"""Host-side batching: examples -> padded numpy batches (the serving part
-of the JAX package's data/loader.py: pad_gt, batch_examples, _collate).
+"""Host-side batching: examples -> padded numpy batches (port of the JAX
+package's data/loader.py: pad_gt, batch_examples, _collate, stage_arrays,
+prefetch).
 
 Ground truth is padded to the static `max_gt_boxes` rows with label 0;
 a short final batch is padded with zero images when not dropped. Images
 stay uint8 until the device (models/decoder.py:preprocess_images).
+`stage_arrays` decodes a whole dataset into contiguous arrays once, for
+the trainer's device-resident cache.
 """
 
 from __future__ import annotations
 
+import threading
+from queue import Empty, Full, Queue
 from typing import Dict, Iterable, Iterator, Optional
 
 import numpy as np
@@ -58,3 +63,66 @@ def _collate(examples, max_gt: int, pad_to: Optional[int] = None):
         ids.append(ex.get("id", str(i)))
     return {"image": images, "boxes": boxes, "labels": labels,
             "difficult": difficult, "ids": ids, "num_valid": n}
+
+
+def stage_arrays(dataset, max_gt: int, *,
+                 pad_to_multiple: Optional[int] = None):
+    """Decode the whole dataset into contiguous host arrays once:
+    ({'image' (N,S,S,3) uint8, 'boxes' (N,G,4), 'labels' (N,G),
+    'difficult', 'ids'}, n_real). `pad_to_multiple` appends all-zero rows
+    (label 0, so zero loss) up to a multiple; n_real counts the rows before
+    padding."""
+    n = len(dataset)
+    total = n
+    if pad_to_multiple:
+        total = -(-n // pad_to_multiple) * pad_to_multiple
+    examples = [dataset.example(i) for i in range(n)]
+    batch = _collate(examples, max_gt, pad_to=total)
+    del batch["num_valid"]
+    return batch, n
+
+
+def prefetch(iterator: Iterator, depth: int = 2) -> Iterator:
+    """Run `iterator` in a background thread, `depth` items ahead of the
+    consumer. An exception in the producer is raised in the consumer; a
+    consumer that stops early stops the producer."""
+    q: Queue = Queue(maxsize=depth)
+    sentinel = object()
+    stop = threading.Event()
+
+    def _put(item) -> bool:
+        while not stop.is_set():
+            try:
+                q.put(item, timeout=0.1)
+                return True
+            except Full:
+                continue
+        return False
+
+    def producer():
+        try:
+            for item in iterator:
+                if not _put(item):
+                    return
+            _put(sentinel)
+        except BaseException as e:  # noqa: BLE001 - raised consumer-side
+            _put(e)
+
+    t = threading.Thread(target=producer, daemon=True)
+    t.start()
+    try:
+        while True:
+            item = q.get()
+            if item is sentinel:
+                return
+            if isinstance(item, BaseException):
+                raise item
+            yield item
+    finally:
+        stop.set()
+        try:  # drain so a blocked producer sees the stop event
+            while True:
+                q.get_nowait()
+        except Empty:
+            pass
+        t.join(timeout=5.0)

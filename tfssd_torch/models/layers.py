@@ -6,8 +6,13 @@ NCHW modules whose parameter names follow the Flax tree (ConvBN holds
 TF "SAME" padding is asymmetric for stride 2: at 300 input it pads (0, 1)
 for 300->150, 150->75, 38->19, 10->5 and 2->1, and (1, 1) for 75->38,
 19->10, 5->3 and 3->2. `SameConv2d` computes it from the input size; a
-symmetric `padding=1` would shift every sample. BatchNorm epsilon is 1e-3
-and momentum 0.01 (Flax's 0.99).
+symmetric `padding=1` would shift every sample.
+
+BatchNorm follows Flax's nn.BatchNorm: epsilon 1e-3, momentum taken from
+SSDConfig.bn_momentum (Flax's 0.99 is torch's 0.01), and in train mode the
+running variance is updated with the BIASED batch variance, where
+nn.BatchNorm2d would use the unbiased one (a factor n/(n-1): 32/31 on the
+1x1 extra map at batch 32).
 """
 
 from __future__ import annotations
@@ -19,6 +24,7 @@ import torch.nn.functional as F
 from torch import nn
 
 BN_EPSILON = 1e-3
+BN_MOMENTUM = 0.99  # Flax convention; SSDConfig.bn_momentum's default
 
 
 def same_padding(size: int, kernel: int, stride: int) -> Tuple[int, int]:
@@ -45,19 +51,51 @@ class SameConv2d(nn.Conv2d):
                         self.groups)
 
 
+class FlaxBatchNorm2d(nn.BatchNorm2d):
+    """nn.BatchNorm2d with Flax's train-mode statistics: it normalises with
+    the biased batch variance (as torch does) and also updates
+    running_var with it (torch would use the unbiased one):
+
+        running = flax_momentum * running + (1 - flax_momentum) * batch
+
+    Construct it with torch's momentum, 1 - flax_momentum. Eval mode is
+    nn.BatchNorm2d's. Parameter and buffer names are nn.BatchNorm2d's."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training:
+            return super().forward(x)
+        # F.batch_norm adds momentum * n/(n-1) * biased to the running
+        # variance it is given; giving it running_var * n/(n-1) and taking
+        # the result back times (n-1)/n leaves Flax's update in the same
+        # pass. The scaled copy is a new tensor because autograd saves it
+        # for the backward (n = 1 raises in F.batch_norm).
+        n = x.numel() // x.shape[1]
+        unbias = n / max(n - 1, 1)
+        with torch.no_grad():
+            var = self.running_var * unbias
+        y = F.batch_norm(x, self.running_mean, var, self.weight, self.bias,
+                         True, self.momentum, self.eps)
+        with torch.no_grad():
+            torch.div(var, unbias, out=self.running_var)
+            self.num_batches_tracked.add_(1)
+        return y
+
+
 class ConvBN(nn.Module):
     """Conv -> BatchNorm -> ReLU6 (or no activation). With fold_bn the BN
-    affine is already folded into a biased conv (utils/fold_bn.py)."""
+    affine is already folded into a biased conv (utils/fold_bn.py).
+    bn_momentum is Flax's (SSDConfig.bn_momentum)."""
 
     def __init__(self, in_channels: int, features: int, kernel: int = 3,
                  stride: int = 1, groups: int = 1, act: bool = True,
-                 fold_bn: bool = False):
+                 fold_bn: bool = False, bn_momentum: float = BN_MOMENTUM):
         super().__init__()
         self.conv = SameConv2d(in_channels, features, kernel, stride,
                                groups=groups, bias=fold_bn)
         self.bn: Optional[nn.BatchNorm2d] = (
             None if fold_bn else
-            nn.BatchNorm2d(features, eps=BN_EPSILON, momentum=0.01))
+            FlaxBatchNorm2d(features, eps=BN_EPSILON,
+                            momentum=1.0 - bn_momentum))
         self.act = act
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -72,15 +110,16 @@ class InvertedResidual(nn.Module):
     the residual add when stride is 1 and the widths match."""
 
     def __init__(self, in_channels: int, features: int, stride: int = 1,
-                 expand_ratio: int = 6, fold_bn: bool = False):
+                 expand_ratio: int = 6, fold_bn: bool = False,
+                 bn_momentum: float = BN_MOMENTUM):
         super().__init__()
         hidden = in_channels * expand_ratio
-        self.expand = (ConvBN(in_channels, hidden, 1, fold_bn=fold_bn)
+        bn = dict(fold_bn=fold_bn, bn_momentum=bn_momentum)
+        self.expand = (ConvBN(in_channels, hidden, 1, **bn)
                        if expand_ratio != 1 else None)
         self.depthwise = ConvBN(hidden, hidden, 3, stride, groups=hidden,
-                                fold_bn=fold_bn)
-        self.project = ConvBN(hidden, features, 1, act=False,
-                              fold_bn=fold_bn)
+                                **bn)
+        self.project = ConvBN(hidden, features, 1, act=False, **bn)
         self.residual = stride == 1 and in_channels == features
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -95,10 +134,11 @@ class ExtraFeatureBlock(nn.Module):
     with VALID final stages, is not ported yet)."""
 
     def __init__(self, in_channels: int, reduce_features: int, features: int,
-                 fold_bn: bool = False):
+                 fold_bn: bool = False, bn_momentum: float = BN_MOMENTUM):
         super().__init__()
-        self.reduce = ConvBN(in_channels, reduce_features, 1, fold_bn=fold_bn)
-        self.down = ConvBN(reduce_features, features, 3, 2, fold_bn=fold_bn)
+        bn = dict(fold_bn=fold_bn, bn_momentum=bn_momentum)
+        self.reduce = ConvBN(in_channels, reduce_features, 1, **bn)
+        self.down = ConvBN(reduce_features, features, 3, 2, **bn)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.down(self.reduce(x))

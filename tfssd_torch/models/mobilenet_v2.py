@@ -16,7 +16,8 @@ from typing import List, Tuple
 import torch
 from torch import nn
 
-from tfssd_torch.models.layers import ConvBN, ExtraFeatureBlock, InvertedResidual
+from tfssd_torch.models.layers import (BN_MOMENTUM, ConvBN, ExtraFeatureBlock,
+                                      InvertedResidual)
 
 # (expand_ratio t, channels c, repeats n, first stride s) — MBv2 Table 2.
 _MBV2_SCHEDULE = (
@@ -37,9 +38,11 @@ _EXTRAS: Tuple[Tuple[int, int], ...] = (
 class MobileNetV2Backbone(nn.Module):
     """Trunk + SSD extras: NCHW images -> six NCHW feature maps."""
 
-    def __init__(self, fold_bn: bool = False):
+    def __init__(self, fold_bn: bool = False,
+                 bn_momentum: float = BN_MOMENTUM):
         super().__init__()
-        self.stem = ConvBN(3, 32, 3, 2, fold_bn=fold_bn)
+        bn = dict(fold_bn=fold_bn, bn_momentum=bn_momentum)
+        self.stem = ConvBN(3, 32, 3, 2, **bn)
         # Block names in forward order; block 13 is three modules.
         self._order: List[str] = []
         inp = 32
@@ -51,25 +54,24 @@ class MobileNetV2Backbone(nn.Module):
                 if stride == 2 and c == 160:
                     hidden = inp * t
                     self.add_module(f"{name}_expand",
-                                    ConvBN(inp, hidden, 1, fold_bn=fold_bn))
+                                    ConvBN(inp, hidden, 1, **bn))
                     self.add_module(f"{name}_depthwise",
                                     ConvBN(hidden, hidden, 3, 2,
-                                           groups=hidden, fold_bn=fold_bn))
+                                           groups=hidden, **bn))
                     self.add_module(f"{name}_project",
-                                    ConvBN(hidden, c, 1, act=False,
-                                           fold_bn=fold_bn))
+                                    ConvBN(hidden, c, 1, act=False, **bn))
                     self._tap_block = name
                 else:
                     self.add_module(name, InvertedResidual(
-                        inp, c, stride, t, fold_bn=fold_bn))
+                        inp, c, stride, t, **bn))
                 self._order.append(name)
                 inp = c
                 block_idx += 1
-        self.head_conv = ConvBN(inp, 1280, 1, fold_bn=fold_bn)
+        self.head_conv = ConvBN(inp, 1280, 1, **bn)
         inp = 1280
         for j, (r, f) in enumerate(_EXTRAS):
             self.add_module(f"extra{j}",
-                            ExtraFeatureBlock(inp, r, f, fold_bn=fold_bn))
+                            ExtraFeatureBlock(inp, r, f, **bn))
             inp = f
 
     def forward(self, x: torch.Tensor) -> List[torch.Tensor]:

@@ -36,7 +36,8 @@ class SSD(nn.Module):
         if config.compute_dtype != "float32":
             raise NotImplementedError("the port serves in float32 only")
         self.config = config
-        self.backbone = MobileNetV2Backbone(fold_bn=config.fold_bn)
+        self.backbone = MobileNetV2Backbone(fold_bn=config.fold_bn,
+                                            bn_momentum=config.bn_momentum)
         self.head = MultiboxHead(config, _MBV2_TAP_CHANNELS)
 
     def features(self, images: torch.Tensor) -> List[torch.Tensor]:

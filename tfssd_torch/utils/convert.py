@@ -14,11 +14,16 @@ The tree comes as nested dicts of numpy arrays ({'params': ...,
 
 Any leaf this does not know raises, and so does any state_dict entry that
 the model does not have (load_variables).
+
+`load_train_state` carries a whole JAX TrainState across: the variables as
+above, Adam's first and second moments (optax's mu and nu, trees shaped as
+params) into torch Adam's exp_avg and exp_avg_sq with the same layout
+changes, and the step count.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Mapping
+from typing import Any, Dict, Mapping, Tuple
 
 import numpy as np
 import torch
@@ -80,3 +85,30 @@ def load_variables(model: nn.Module, tree: Mapping[str, Any]) -> nn.Module:
 def is_folded(tree: Mapping[str, Any]) -> bool:
     """True for a tree whose BatchNorm is already folded (no batch_stats)."""
     return not any(k.startswith("batch_stats/") for k in flatten_tree(tree))
+
+
+def load_train_state(model: nn.Module, optimizer: torch.optim.Optimizer,
+                     variables: Mapping[str, Any], mu: Mapping[str, Any],
+                     nu: Mapping[str, Any], count: int
+                     ) -> Tuple[nn.Module, torch.optim.Optimizer]:
+    """Load a JAX TrainState (numpy leaves) into `model` and `optimizer`, a
+    torch.optim.Adam built over model.parameters(): the variables, Adam's
+    mu/nu (each a tree shaped as params) and the update count."""
+    load_variables(model, variables)
+    exp_avg = variables_to_state_dict({"params": mu})
+    exp_avg_sq = variables_to_state_dict({"params": nu})
+    index = {id(p): i for i, p in enumerate(
+        p for g in optimizer.param_groups for p in g["params"])}
+    state = {}
+    for name, param in model.named_parameters():
+        if name not in exp_avg or name not in exp_avg_sq:
+            raise KeyError(f"no Adam moments for {name!r}")
+        state[index[id(param)]] = {
+            "step": torch.tensor(float(count)),
+            "exp_avg": exp_avg[name], "exp_avg_sq": exp_avg_sq[name]}
+    if len(state) != len(exp_avg):
+        raise KeyError("Adam moments for parameters the model does not have")
+    sd = optimizer.state_dict()
+    optimizer.load_state_dict({"state": state,
+                               "param_groups": sd["param_groups"]})
+    return model, optimizer

@@ -11,6 +11,11 @@ Phases, in order; any failure ends the run with a non-zero exit:
               first batch (R = 8 images x 20 classes, K = 200) and of a
               batch of 64, held bit-equal against its plain PyTorch version
               on the card; both kept and suppressed entries must occur.
+              The same on every crafted case of
+              tfssd_torch/ops/kernels/nms_keep_cases.py (64 instances each:
+              K from 1 to 256, IoUs at the threshold and one ulp either
+              side, identical, invalid, -inf, zero-area and inverted boxes,
+              equal scores).
               The match/encode kernel on a real training batch (32
               SyntheticDataset(seed=0) images augmented by the port on the
               card; N = 2,268 anchors, G = 64): labels bit-equal to its
@@ -44,6 +49,10 @@ Phases, in order; any failure ends the run with a non-zero exit:
               (augmentation on, device-resident data); each kernel's and
               its plain version's ms per call (nms_keep at R = 160 and
               R = 1280, match_encode at B = 32, G = 64) beside its bound;
+              for nms_keep also the device us per launch (CUDA events
+              around replays of a CUDA graph of 20 wrapper calls: no host
+              work between launches) and the host us per call (host clock
+              around 200 back-to-back wrapper calls, launches included);
               the card's name and power limit.
   5. the `kernels` JSON line, then the one-line JSON result, last.
 
@@ -76,6 +85,8 @@ from tfssd_torch.models.decoder import (decode_boxes_and_scores,
 from tfssd_torch.ops import matching, nms
 from tfssd_torch.ops.boxes import generate_anchors
 from tfssd_torch.ops.kernels import build, match_encode, nms_keep
+from tfssd_torch.ops.kernels.nms_keep_cases import keep_cases
+from tfssd_torch.profile_nms_keep import host_us
 from tfssd_torch.train import (create_train_state, make_cached_train_step,
                                make_lr_schedule, make_train_step)
 
@@ -150,6 +161,51 @@ def time_ms(fn, iters: int, warmup: int = 3) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def graph_us(fn, per_graph: int = 20, replays: int = 20) -> float:
+    """Device us per call of `fn`: CUDA events around `replays` replays of
+    a CUDA graph that holds `per_graph` calls, so no host work sits between
+    the launches."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(per_graph):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) * 1e3 / (per_graph * replays)
+
+
+def check_keep_cases(device) -> None:
+    """The keep kernel against its plain version on the card, bit for bit,
+    on every crafted case."""
+    cases = keep_cases(instances=64, seed=1)
+    for case in cases:
+        boxes = torch.from_numpy(case.boxes).to(device)
+        scores = torch.from_numpy(case.scores).to(device)
+        thr = (case.iou_threshold, case.score_threshold)
+        got = nms_keep.nms_keep_cuda(boxes, scores, *thr)
+        torch.cuda.synchronize()
+        want = nms_keep.nms_keep_reference(boxes, scores, *thr)
+        if not torch.equal(got, want):
+            raise AssertionError(f"keep mask differs on crafted case "
+                                 f"{case.name}: {int((got != want).sum())} "
+                                 f"entries")
+    print(f"kernel: nms_keep crafted cases bit-equal ({len(cases)} cases, "
+          f"64 instances each): {', '.join(c.name for c in cases)}")
 
 
 def keep_bound(r: int, k: int):
@@ -465,6 +521,7 @@ def main() -> int:
             raise AssertionError("the candidates exercise no suppression")
         cands[r] = (boxes, scores)
         parity[r] = err
+    check_keep_cases(device)
     m_anchors, m_boxes, m_labels = training_batch(cfg, device)
     match_err = check_match_encode(cfg, m_anchors, m_boxes, m_labels)
 
@@ -539,12 +596,21 @@ def main() -> int:
     rows = {}
     for r, (boxes, scores) in sorted(cands.items()):
         k = scores.shape[1]
-        ms = time_ms(lambda: nms_keep.nms_keep_cuda(boxes, scores, *thr), 200)
+
+        def call(boxes=boxes, scores=scores):
+            return nms_keep.nms_keep_cuda(boxes, scores, *thr)
+
+        ms = time_ms(call, 200)
+        dev_us = graph_us(call)
+        h_us = host_us(call)
         plain = time_ms(
             lambda: nms_keep.nms_keep_reference(boxes, scores, *thr), 10)
         bound, bound_by = keep_bound(r, k)
-        rows[r] = (ms, plain, bound, bound_by)
-        print(f"timing: nms_keep R={r} K={k}: kernel {ms:.5f} ms/call, plain "
+        rows[r] = dict(ms=ms, device_us=dev_us, host_us=h_us, plain_ms=plain,
+                       bound_ms=bound, bound_by=bound_by)
+        print(f"timing: nms_keep R={r} K={k}: kernel {ms:.5f} ms/call "
+              f"through the wrapper, device {dev_us:.2f} us per launch "
+              f"(graph replay), host {h_us:.2f} us per call, plain "
               f"{plain:.5f} ms/call, bound {bound:.6f} ms ({bound_by})")
     step_ms = time_train_step(cfg, device)
     print(f"timing: train {step_ms:.3f} ms per step, "
@@ -567,19 +633,17 @@ def main() -> int:
 
     section("5. kernels")
     r_path = PATH_BATCH * (cfg.total_labels - 1)
-    ms, plain, bound, bound_by = rows[r_path]
-    r_big = max(rows)
+    path_row, big_row = rows[r_path], rows[max(rows)]
     entry = {
         "name": "nms_keep", "route": "cuda",
         "source": "tfssd_torch/csrc/nms_keep.cu",
         "replaces": reference_site("ops/kernels/nms_keep.py",
                                    "nms_keep_pallas"),
         "launches": launches, "max_abs_err": float(max(parity.values())),
-        "ms": ms, "plain_ms": plain, "bound_ms": bound, "bound_by": bound_by,
-        "library_ms": None, "bit_equal": True,
+        **path_row, "library_ms": None, "bit_equal": True,
         "shape": f"R={r_path},K={cfg.max_detections_per_class}",
-        "ms_R1280": rows[r_big][0], "plain_ms_R1280": rows[r_big][1],
-        "bound_ms_R1280": rows[r_big][2],
+        **{f"{key}_R{max(rows)}": big_row[key]
+           for key in ("ms", "device_us", "host_us", "plain_ms", "bound_ms")},
     }
     match_entry = {
         "name": "match_encode", "route": "cuda",

@@ -1,11 +1,18 @@
 """Parity of the port's NMS (tfssd_torch.ops.nms, ops/kernels/nms_keep.py)
 with the JAX package's: the plain keep mask against the Pallas kernel in
-interpret mode and against the default blocked solve, and combined_nms on
-the hand-made cases of tests/test_nms.py and on random inputs.
+interpret mode and against the default blocked solve, on random inputs and
+on the crafted edge cases of ops/kernels/nms_keep_cases.py (on the card:
+the kernel against the plain version on the same cases), and combined_nms
+on the hand-made cases of tests/test_nms.py and on random inputs.
 
 Keep masks and classes must be equal; boxes and scores within 1e-6 (both
 sides gather the same float32 values, so they agree exactly in practice).
 """
+
+import os
+import subprocess
+import sys
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -16,7 +23,9 @@ import jax.numpy as jnp  # noqa: E402
 import torch  # noqa: E402
 
 from tfssd_torch.ops import nms as tnms  # noqa: E402
+from tfssd_torch.ops.boxes import iou_matrix  # noqa: E402
 from tfssd_torch.ops.kernels import nms_keep as tkeep  # noqa: E402
+from tfssd_torch.ops.kernels.nms_keep_cases import keep_cases  # noqa: E402
 from tfssd_tpu.ops import nms as jnms  # noqa: E402
 from tfssd_tpu.ops.kernels.nms_keep import nms_keep_pallas  # noqa: E402
 
@@ -86,6 +95,107 @@ def test_keep_kernel_matches_reference_on_card():
         torch.cuda.synchronize()
         want = tkeep.nms_keep_reference(b, s, 0.45, 0.1)
         assert torch.equal(got, want), (k, spread)
+
+
+ROOT = Path(__file__).resolve().parents[1]
+CASES = {c.name: c for c in keep_cases()}
+
+# XLA:CPU always allows LLVM to fuse a multiply and an add into an FMA, so
+# the jitted body of the Pallas kernel rounds some IoUs (area_i + area_j -
+# inter) once where float32 elementwise code rounds twice: on the decimal
+# grid case many pairs' IoUs move by an ulp, and at the exact threshold the
+# keep mask then differs from the plain version's and from the JAX
+# package's own _greedy_keep_blocked (which runs op by op). So the
+# interpreted kernel runs in a process whose XLA may not emit FMA
+# instructions (--xla_cpu_max_isa=AVX), where every operation rounds as
+# written, as on the card under -fmad=false.
+_PALLAS_SCRIPT = """
+import sys
+import numpy as np
+import jax
+jax.config.update("jax_platforms", "cpu")
+import jax.numpy as jnp
+from tfssd_torch.ops.kernels.nms_keep_cases import keep_cases
+from tfssd_tpu.ops.kernels.nms_keep import nms_keep_pallas
+np.savez(sys.argv[1], **{
+    c.name: np.asarray(nms_keep_pallas(
+        jnp.asarray(c.boxes), jnp.asarray(c.scores), c.iou_threshold,
+        c.score_threshold, interpret=True))
+    for c in keep_cases()})
+"""
+
+
+@pytest.fixture(scope="module")
+def pallas_keep(tmp_path_factory):
+    out = tmp_path_factory.mktemp("pallas") / "keep.npz"
+    env = dict(os.environ, JAX_PLATFORMS="cpu", PYTHONPATH=str(ROOT),
+               XLA_FLAGS="--xla_cpu_max_isa=AVX")
+    subprocess.run([sys.executable, "-c", _PALLAS_SCRIPT, str(out)],
+                   env=env, check=True, timeout=600)
+    with np.load(out) as f:
+        return {name: f[name] for name in f.files}
+
+
+def _plain(case):
+    return tkeep.nms_keep_reference(
+        torch.from_numpy(case.boxes), torch.from_numpy(case.scores),
+        case.iou_threshold, case.score_threshold).numpy()
+
+
+@pytest.mark.parametrize("name", sorted(CASES))
+def test_keep_reference_matches_pallas_on_crafted_cases(name, pallas_keep):
+    np.testing.assert_array_equal(_plain(CASES[name]), pallas_keep[name])
+
+
+@pytest.mark.parametrize("name", sorted(CASES))
+def test_keep_reference_matches_greedy_blocked_on_crafted_cases(name):
+    case = CASES[name]
+    valid = case.scores > np.float32(case.score_threshold)
+    want = jnms._greedy_keep_blocked(jnp.asarray(case.boxes),
+                                     jnp.asarray(valid), case.iou_threshold)
+    np.testing.assert_array_equal(_plain(case), np.asarray(want))
+
+
+@pytest.mark.parametrize("grid", ["edge_dyadic", "edge_decimal"])
+def test_edge_cases_sit_on_the_threshold(grid):
+    """The 'at' case's threshold is the float32 IoU of many pairs, the
+    'above' and 'below' thresholds one ulp either side, and the three keep
+    masks differ: the cases decide pairs exactly at the edge."""
+    at = CASES[f"{grid}_at"]
+    t = np.float32(at.iou_threshold)
+    assert np.float32(CASES[f"{grid}_above"].iou_threshold) == np.nextafter(
+        t, np.float32(-np.inf))
+    assert np.float32(CASES[f"{grid}_below"].iou_threshold) == np.nextafter(
+        t, np.float32(np.inf))
+    b = torch.from_numpy(at.boxes)
+    iou = iou_matrix(b, b).numpy()
+    upper = np.triu(np.ones(iou.shape[1:], bool), 1)
+    assert int(((iou == t) & upper).sum()) >= 20
+    masks = [_plain(CASES[f"{grid}_{side}"])
+             for side in ("above", "at", "below")]
+    assert not np.array_equal(masks[0], masks[1])
+
+
+def test_keep_cuda_refuses_tensor_thresholds():
+    boxes = torch.zeros((2, 3, 4))
+    scores = torch.ones((2, 3))
+    with pytest.raises(TypeError):
+        tkeep.nms_keep_cuda(boxes, scores, torch.tensor(0.45), 0.0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(CASES))
+def test_keep_kernel_matches_reference_on_crafted_cases_on_card(name):
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the kernel has no CPU mode")
+    case = next(c for c in keep_cases(64, 1) if c.name == name)
+    b = torch.from_numpy(case.boxes).cuda()
+    s = torch.from_numpy(case.scores).cuda()
+    got = tkeep.nms_keep_cuda(b, s, case.iou_threshold, case.score_threshold)
+    torch.cuda.synchronize()
+    want = tkeep.nms_keep_reference(b, s, case.iou_threshold,
+                                    case.score_threshold)
+    assert torch.equal(got, want)
 
 
 def _compare(got, want, shift=0):

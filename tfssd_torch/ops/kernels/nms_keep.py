@@ -6,13 +6,24 @@ Per (image, class) instance: K x K float32 IoU of the score-sorted
 candidates (union clamped at 1e-8), strict upper-triangular suppression
 iou > iou_threshold, valid = score > score_threshold, exact greedy keep.
 
-Bound on the H100: R*K*(16+4+1) bytes (well under a microsecond at
-3.35 TB/s) and ~R*K^2/2 IoUs of ~15 float32 operations (under a
-microsecond at 67 TFLOP/s for R = 160, K = 200), so the launch and the
-K-step serial scan bound it. The kernel (csrc/nms_keep.cu) gives every
-instance its own block: the suppression bitmask lives in shared memory,
-the IoU never reaches device memory, and one warp per block runs the
-K-step greedy scan, so all instances scan in parallel.
+What bounds it on the H100: R*K*(16+4+1) bytes are well under a
+microsecond at 3.35 TB/s, and the ~R*K^2/2 IoUs of 15 float32 operations
+0.7 us at R = 160 and 5.7 us at R = 1280 (K = 200) at 67 TFLOP/s. But a
+compiled pair takes about 32 instructions against its 15 float operations
+(the IEEE divide alone is a reciprocal, five FMAs, a range check and a
+branch), so the SMs' instruction issue is the floor (csrc/nms_keep.cu
+gives the count, from python -m tfssd_torch.profile_nms_keep). The kernel
+gives every instance its own block: 32 x 32 tiles of the upper triangle
+dealt to the block's warps, each lane building its column's suppression
+word in a register; then one warp solves the greedy recurrence in 32-wide
+blocks with each diagonal block's words in registers.
+
+The launch path is lean, because once the device part takes ~10 us the
+wrapper's own host time sets the time of a call: it checks its inputs,
+allocates the output, and calls the library with the raw handle of the
+current stream of the tensors' device; the C side switches the current
+device only if it differs. It reads nothing back from the device: no
+sync, no .item(), and a tensor threshold is refused rather than read.
 
 `nms_keep` dispatches by device: a CPU tensor goes to the plain version,
 a CUDA tensor to the kernel, which raises if it cannot run. There is no
@@ -44,7 +55,7 @@ def _launch_fn():
         fn = load_library("nms_keep").nms_keep_launch
         fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
                        ctypes.c_int, ctypes.c_int, ctypes.c_float,
-                       ctypes.c_float, ctypes.c_void_p]
+                       ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
         fn.restype = ctypes.c_int
         _FN = fn
     return _FN
@@ -66,24 +77,34 @@ def nms_keep_cuda(boxes: torch.Tensor, scores: torch.Tensor,
                   iou_threshold: float,
                   score_threshold: float) -> torch.Tensor:
     """(R, K, 4) f32 boxes, (R, K) f32 scores on a CUDA device ->
-    (R, K) bool keep, by the hand-written kernel; K <= 256."""
+    (R, K) bool keep, by the hand-written kernel; K <= 256. The thresholds
+    are Python numbers: a tensor would have to be read back from the
+    device."""
     global LAUNCHES
     _check(boxes, scores)
-    if boxes.device.type != "cuda":
+    if isinstance(iou_threshold, torch.Tensor) or isinstance(
+            score_threshold, torch.Tensor):
+        raise TypeError("thresholds must be Python numbers, not tensors")
+    device = boxes.device
+    if device.type != "cuda":
         raise ValueError("nms_keep_cuda needs CUDA tensors")
     r, k, _ = boxes.shape
     if k > MAX_K:
         raise ValueError(f"nms_keep_cuda takes K <= {MAX_K}, got {k}")
     if not (boxes.is_contiguous() and scores.is_contiguous()):
         raise ValueError("boxes and scores must be contiguous")
-    keep = torch.empty((r, k), dtype=torch.bool, device=boxes.device)
+    # empty_like parses fewer arguments than empty; scores is a contiguous
+    # (R, K).
+    keep = torch.empty_like(scores, dtype=torch.bool)
     if r == 0 or k == 0:
         return keep
-    fn = _launch_fn()
-    with torch.cuda.device(boxes.device):
-        stream = torch.cuda.current_stream(boxes.device).cuda_stream
-        err = fn(boxes.data_ptr(), scores.data_ptr(), keep.data_ptr(),
-                 r, k, float(iou_threshold), float(score_threshold), stream)
+    # The raw handle of the device's current stream: what
+    # torch.cuda.current_stream(device).cuda_stream returns, without
+    # building a Stream object on every call (PERF.md: host time).
+    stream = torch._C._cuda_getCurrentRawStream(device.index)
+    err = _launch_fn()(boxes.data_ptr(), scores.data_ptr(), keep.data_ptr(),
+                       r, k, iou_threshold, score_threshold, device.index,
+                       stream)
     if err != 0:
         raise RuntimeError(f"nms_keep kernel launch failed: cudaError {err}")
     LAUNCHES += 1

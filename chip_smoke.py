@@ -11,6 +11,9 @@ Phases, in order; any failure ends the run with a non-zero exit:
               first batch (R = 8 images x 20 classes, K = 200) and of a
               batch of 64, held bit-equal against its plain PyTorch version
               on the card; both kept and suppressed entries must occur.
+              The same on the candidates of a batch of 8 through
+              SSD300-VGG16 and SSD512-VGG16 (seeded weights, each
+              config's own synthetic images).
               The same on every crafted case of
               tfssd_torch/ops/kernels/nms_keep_cases.py (64 instances each:
               K from 1 to 256, IoUs at the threshold and one ulp either
@@ -21,7 +24,9 @@ Phases, in order; any failure ends the run with a non-zero exit:
               card; N = 2,268 anchors, G = 64): labels bit-equal to its
               plain version, deltas within 1e-5 (both call logf, which is
               not correctly rounded), positives and negatives present; the
-              same with force_match_for_gt.
+              same with force_match_for_gt. The same at SSD300-VGG16's
+              N = 8,732 and SSD512's N = 24,564 (B = 32, G = 64, each
+              config's own augmented synthetic batch).
   3. path   — serving: `python -m tfssd_torch.predict` (its main()) serves 32
               synthetic images at batch 8 through SSD300-MobileNetV2 at
               full width with seeded weights; the kernel's launch counter is
@@ -31,6 +36,9 @@ Phases, in order; any failure ends the run with a non-zero exit:
               the card's NMSResult against the CPU plain path fed the card's
               decoded boxes and scores (classes and valid equal, boxes and
               scores within 1e-6).
+              The same for `--backbone vgg16` and `--backbone vgg16_512`
+              at full width, 24 images at batch 8 (launches == batches),
+              the first batch's outputs held against the CPU on 2 images.
               training: `python -m tfssd_torch.trainer` (its main()) at
               full width, batch 32, 2 epochs x 3 steps with augmentation,
               one validation batch per epoch, checkpoints under build/;
@@ -45,16 +53,20 @@ Phases, in order; any failure ends the run with a non-zero exit:
               distance to the exact gradient and the same step in TF32
               on the card as a control that the gates must refuse.
   4. timing — serving img/s at batch 8 and 64 (device-resident uint8
-              images -> NMSResult); train ms/step and img/s at batch 32
+              images -> NMSResult), for each VGG16 config at batch 8 and
+              the largest of 64 / 32 that fits; train ms/step and img/s at
+              batch 32
               (augmentation on, device-resident data); each kernel's and
               its plain version's ms per call (nms_keep at R = 160 and
-              R = 1280, match_encode at B = 32, G = 64) beside its bound;
-              for nms_keep also the device us per launch (CUDA events
-              around replays of a CUDA graph of 20 wrapper calls: no host
-              work between launches) and the host us per call (host clock
+              R = 1280 and on each VGG16 config's R = 160, match_encode at
+              B = 32, G = 64 and N = 2,268, 8,732 and 24,564) beside its
+              bound; also the device us per launch (CUDA events around
+              replays of a CUDA graph of 20 wrapper calls: no host work
+              between launches) and the host us per call (host clock
               around 200 back-to-back wrapper calls, launches included);
               the card's name and power limit.
-  5. the `kernels` JSON line, then the one-line JSON result, last.
+  5. the whole run's seconds, the `kernels` JSON line, then the one-line
+     JSON result, last.
 
 It exits non-zero without a result when no CUDA device is available, and
 in a directory that holds this script without the tfssd_torch package.
@@ -76,7 +88,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from tfssd_torch import predict, trainer
+from tfssd_torch import get_hyper_params, predict, trainer
 from tfssd_torch.data.augment import augment_batch
 from tfssd_torch.data.loader import stage_arrays
 from tfssd_torch.data.synthetic import SyntheticDataset
@@ -91,6 +103,7 @@ from tfssd_torch.train import (create_train_state, make_cached_train_step,
                                make_lr_schedule, make_train_step)
 
 ROOT = Path(__file__).resolve().parent
+CARD = torch.device("cuda", 0)
 
 # H100 SXM peaks (NVIDIA data sheet; dense, at the 700 W power limit).
 HBM_BYTES_PER_S = 3.35e12
@@ -108,6 +121,9 @@ OPS_PER_MATCH = 16
 
 PATH_BATCH = 8
 PATH_IMAGES = 32
+VGG_CONFIGS = ("vgg16", "vgg16_512")
+VGG_PATH_IMAGES = 24
+VGG_CPU_IMAGES = 2
 TRAIN_BATCH = 32
 TRAIN_EPOCHS = 2
 TRAIN_STEPS = 3
@@ -286,6 +302,180 @@ def check_match_encode(cfg, anchors, boxes, labels) -> float:
             raise AssertionError("the batch has no positives or no negatives")
         worst = max(worst, err)
     return worst
+
+
+def eval_images(cfg, count: int) -> np.ndarray:
+    """The first `count` uint8 images of the predictor's synthetic
+    evaluation split at the config's size."""
+    dataset = SyntheticDataset(predict.SYNTHETIC_EVAL_SIZE,
+                               image_size=cfg.img_size,
+                               seed=predict.SYNTHETIC_EVAL_SEED)
+    return np.stack([dataset.example(i)["image"] for i in range(count)])
+
+
+def check_keep_on_candidates(model, cfg, images: np.ndarray, label: str):
+    """The keep kernel against its plain version on the serving path's
+    candidates of `images`: bit-equal, with kept and suppressed entries.
+    Returns (boxes, scores, max abs error)."""
+    anchors_t = torch.from_numpy(generate_anchors(cfg)).to(CARD)
+    boxes, scores = candidates(model, cfg, anchors_t, images)
+    thr = (cfg.nms_iou_threshold, cfg.nms_score_threshold)
+    got = nms_keep.nms_keep_cuda(boxes, scores, *thr)
+    torch.cuda.synchronize()
+    want = nms_keep.nms_keep_reference(boxes, scores, *thr)
+    valid = scores > cfg.nms_score_threshold
+    err = (got.int() - want.int()).abs().max().item()
+    kept = int(got.sum())
+    suppressed = int((valid & ~got).sum())
+    r, k = scores.shape
+    print(f"kernel: nms_keep {label} R={r} K={k} "
+          f"bit_equal={torch.equal(got, want)} kept={kept} "
+          f"suppressed={suppressed} invalid={int((~valid).sum())}")
+    if not torch.equal(got, want):
+        raise AssertionError(f"keep mask differs ({label}, R={r}): "
+                             f"{int((got != want).sum())} entries")
+    if kept == 0 or suppressed == 0:
+        raise AssertionError(f"the candidates ({label}) exercise no "
+                             f"suppression")
+    return boxes, scores, err
+
+
+def serving_path(backbone: str, limit: int, checked: int, cpu_images: int):
+    """Drive `python -m tfssd_torch.predict --backbone <backbone>` at full
+    width on the card with seeded weights, its keep launch counter set to
+    0 just before and read just after; hold the first `checked` batches'
+    (deltas, logits) (their first `cpu_images` images) against the same
+    model on the CPU, and their NMSResult against the CPU plain path fed
+    the card's decoded boxes and scores. Returns (run, launches)."""
+    nms_keep.LAUNCHES = 0
+    run = predict.main([
+        "--backbone", backbone, "--dataset", "synthetic",
+        "--limit", str(limit), "--batch-size", str(PATH_BATCH),
+        "--random-weights", "--seed", str(SEED), "--device", "cuda"])
+    torch.cuda.synchronize()
+    launches = nms_keep.LAUNCHES
+    n_batches = len(run.results)
+    print(f"path: {backbone} {sum(run.num_valid)} images in {n_batches} "
+          f"batches, nms_keep launches={launches}, mAP={run.mean_ap:.4f}")
+    if launches != n_batches:
+        raise AssertionError(f"nms_keep launched {launches} times for "
+                             f"{n_batches} batches ({backbone})")
+    if not np.isfinite(run.mean_ap):
+        raise AssertionError(f"mAP is not finite ({backbone})")
+
+    cpu_cfg, cpu_model = predict.load_model(backbone, None, SEED, "cpu")
+    anchors_t = torch.from_numpy(run.anchors).to(CARD)
+    for b in range(checked):
+        deltas, logits = run.outputs[b]
+        if not (torch.isfinite(deltas).all() and torch.isfinite(logits).all()):
+            raise AssertionError(f"{backbone} batch {b}: non-finite model "
+                                 f"outputs")
+        with torch.no_grad():
+            ref_d, ref_l = cpu_model(preprocess_images(
+                torch.from_numpy(run.images[b][:cpu_images])))
+        for name, card, ref in (("deltas", deltas, ref_d),
+                                ("logits", logits, ref_l)):
+            card = card[:cpu_images].cpu()
+            err = (card - ref).abs()
+            worst = float(err.max())
+            print(f"path: {backbone} batch {b} {name} {tuple(card.shape)} "
+                  f"max|card-cpu|={worst:.3g} "
+                  f"(|cpu| <= {float(ref.abs().max()):.3g})")
+            if not bool((err <= 1e-3 + 1e-3 * ref.abs()).all()):
+                raise AssertionError(f"{backbone} batch {b} {name} differ: "
+                                     f"{worst}")
+        boxes, scores = decode_boxes_and_scores(anchors_t, deltas, logits,
+                                                run.config)
+        want = nms.combined_nms(
+            boxes.cpu(), scores.cpu(),
+            max_detections_per_class=cpu_cfg.max_detections_per_class,
+            max_total_detections=cpu_cfg.max_total_detections,
+            iou_threshold=cpu_cfg.nms_iou_threshold,
+            score_threshold=cpu_cfg.nms_score_threshold,
+            prefilter_anchors=cpu_cfg.nms_prefilter_anchors)
+        got = run.results[b]
+        classes = torch.where(want.classes >= 0, want.classes + 1,
+                              torch.zeros_like(want.classes))
+        if not (torch.equal(got.classes.cpu(), classes)
+                and torch.equal(got.valid.cpu(), want.valid)):
+            raise AssertionError(f"{backbone} batch {b}: classes/valid "
+                                 f"differ")
+        box_err = float((got.boxes.cpu() - want.boxes).abs().max())
+        score_err = float((got.scores.cpu() - want.scores).abs().max())
+        print(f"path: {backbone} batch {b} NMSResult vs CPU plain path: "
+              f"classes and valid equal (valid={got.valid.tolist()}), max "
+              f"box err {box_err:.3g}, max score err {score_err:.3g}")
+        if box_err > 1e-6 or score_err > 1e-6:
+            raise AssertionError(f"{backbone} batch {b}: boxes/scores "
+                                 f"differ")
+    return run, launches
+
+
+def time_serving(run, images: np.ndarray, batches, label: str) -> dict:
+    """img/s of uint8 images on the card -> NMSResult at each batch size
+    of `batches`; a batch that does not fit in memory is reported and
+    left out of the result, which the caller checks. Returns
+    {batch: img/s}."""
+    predict_fn = make_predict_fn(run.model, run.anchors, run.config)
+    out = {}
+    for bs, iters in batches:
+        x = torch.from_numpy(images[:bs]).to(CARD)
+        try:
+            ms = time_ms(lambda: predict_fn(x), iters)
+        except torch.cuda.OutOfMemoryError:
+            del x
+            torch.cuda.empty_cache()
+            print(f"timing: {label} serving at batch {bs} does not fit")
+            continue
+        out[bs] = bs * 1e3 / ms
+        print(f"timing: {label} serving {out[bs]:.1f} img/s at batch {bs} "
+              f"({ms:.3f} ms per batch, uint8 on device -> NMSResult)")
+    return out
+
+
+def time_keep(boxes, scores, thr, label: str) -> dict:
+    """nms_keep and its plain version on one set of candidates: ms per call
+    through the wrapper, device us per launch, host us per call, bound."""
+    r, k = scores.shape
+
+    def call():
+        return nms_keep.nms_keep_cuda(boxes, scores, *thr)
+
+    ms = time_ms(call, 200)
+    dev_us = graph_us(call)
+    h_us = host_us(call)
+    plain = time_ms(lambda: nms_keep.nms_keep_reference(boxes, scores, *thr),
+                    10)
+    bound, bound_by = keep_bound(r, k)
+    print(f"timing: nms_keep {label} R={r} K={k}: kernel {ms:.5f} ms/call "
+          f"through the wrapper, device {dev_us:.2f} us per launch "
+          f"(graph replay), host {h_us:.2f} us per call, plain "
+          f"{plain:.5f} ms/call, bound {bound:.6f} ms ({bound_by})")
+    return dict(ms=ms, device_us=dev_us, host_us=h_us, plain_ms=plain,
+                bound_ms=bound, bound_by=bound_by)
+
+
+def time_match(anchors, boxes, labels, cfg) -> dict:
+    """match_encode and its plain version on one batch: ms per call
+    through the wrapper, device us per launch, host us per call, bound."""
+    args = (anchors, boxes, labels, cfg.iou_threshold, cfg.variances)
+
+    def call():
+        return match_encode.match_encode_cuda(*args)
+
+    ms = time_ms(call, 200)
+    dev_us = graph_us(call)
+    h_us = host_us(call)
+    plain = time_ms(lambda: matching.match_targets(*args), 20)
+    b, g = labels.shape
+    n = anchors.shape[0]
+    bound, bound_by = match_bound(b, n, g)
+    print(f"timing: match_encode B={b} N={n} G={g}: kernel {ms:.5f} "
+          f"ms/call, device {dev_us:.2f} us per launch (graph replay), host "
+          f"{h_us:.2f} us per call, plain {plain:.5f} ms/call, bound "
+          f"{bound:.6f} ms ({bound_by})")
+    return dict(ms=ms, device_us=dev_us, host_us=h_us, plain_ms=plain,
+                bound_ms=bound, bound_by=bound_by)
 
 
 def train_path(cfg, device: str = "cuda") -> int:
@@ -483,7 +673,8 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 1
-    device = torch.device("cuda", 0)
+    t_start = time.perf_counter()
+    device = CARD
     kind = torch.cuda.get_device_name(0)
     print(f"device: {kind}, torch {torch.__version__}, CUDA "
           f"{torch.version.cuda}, {torch.cuda.device_count()} visible")
@@ -493,138 +684,65 @@ def main() -> int:
 
     section("2. kernel")
     cfg, model = predict.load_model("mobilenet_v2", None, SEED, device)
-    anchors_t = torch.from_numpy(generate_anchors(cfg)).to(device)
-    dataset = SyntheticDataset(predict.SYNTHETIC_EVAL_SIZE,
-                               image_size=cfg.img_size,
-                               seed=predict.SYNTHETIC_EVAL_SEED)
-    images = {bs: np.stack([dataset.example(i)["image"] for i in range(bs)])
-              for bs in (PATH_BATCH, 64)}
+    images = {bs: eval_images(cfg, bs) for bs in (PATH_BATCH, 64)}
     thr = (cfg.nms_iou_threshold, cfg.nms_score_threshold)
     cands, parity = {}, {}
     for bs, imgs in images.items():
-        boxes, scores = candidates(model, cfg, anchors_t, imgs)
-        got = nms_keep.nms_keep_cuda(boxes, scores, *thr)
-        torch.cuda.synchronize()
-        want = nms_keep.nms_keep_reference(boxes, scores, *thr)
-        valid = scores > cfg.nms_score_threshold
-        err = (got.int() - want.int()).abs().max().item()
-        kept = int(got.sum())
-        suppressed = int((valid & ~got).sum())
-        r, k = scores.shape
-        print(f"kernel: R={r} K={k} bit_equal={torch.equal(got, want)} "
-              f"kept={kept} suppressed={suppressed} "
-              f"invalid={int((~valid).sum())}")
-        if not torch.equal(got, want):
-            raise AssertionError(f"keep mask differs at R={r}: "
-                                 f"{int((got != want).sum())} entries")
-        if kept == 0 or suppressed == 0:
-            raise AssertionError("the candidates exercise no suppression")
-        cands[r] = (boxes, scores)
-        parity[r] = err
+        boxes, scores, err = check_keep_on_candidates(model, cfg, imgs,
+                                                      "mobilenet_v2")
+        cands[scores.shape[0]] = (boxes, scores)
+        parity["mobilenet_v2", bs] = err
+    vgg_cands, vgg_images, vgg_match = {}, {}, {}
+    for name in VGG_CONFIGS:
+        vcfg, vmodel = predict.load_model(name, None, SEED, device)
+        vgg_images[name] = eval_images(vcfg, 64)
+        boxes, scores, err = check_keep_on_candidates(
+            vmodel, vcfg, vgg_images[name][:PATH_BATCH], name)
+        vgg_cands[name] = (boxes, scores)
+        parity[name, PATH_BATCH] = err
+        vgg_match[name] = training_batch(vcfg, device)
+        del vmodel
     check_keep_cases(device)
     m_anchors, m_boxes, m_labels = training_batch(cfg, device)
-    match_err = check_match_encode(cfg, m_anchors, m_boxes, m_labels)
+    match_err = max([check_match_encode(cfg, m_anchors, m_boxes, m_labels)]
+                    + [check_match_encode(get_hyper_params(name), *batch)
+                       for name, batch in vgg_match.items()])
 
     section("3. path")
-    nms_keep.LAUNCHES = 0
-    run = predict.main([
-        "--backbone", "mobilenet_v2", "--dataset", "synthetic",
-        "--limit", str(PATH_IMAGES), "--batch-size", str(PATH_BATCH),
-        "--random-weights", "--seed", str(SEED), "--device", "cuda"])
-    torch.cuda.synchronize()
-    launches = nms_keep.LAUNCHES
-    n_batches = len(run.results)
-    print(f"path: {sum(run.num_valid)} images in {n_batches} batches, "
-          f"nms_keep launches={launches}, mAP={run.mean_ap:.4f}")
-    if launches != n_batches:
-        raise AssertionError(f"nms_keep launched {launches} times for "
-                             f"{n_batches} batches")
-    if not np.isfinite(run.mean_ap):
-        raise AssertionError("mAP is not finite")
-
-    cpu_cfg, cpu_model = predict.load_model("mobilenet_v2", None, SEED,
-                                            "cpu")
-    for b in range(2):
-        deltas, logits = run.outputs[b]
-        if not (torch.isfinite(deltas).all() and torch.isfinite(logits).all()):
-            raise AssertionError(f"batch {b}: non-finite model outputs")
-        with torch.no_grad():
-            ref_d, ref_l = cpu_model(
-                preprocess_images(torch.from_numpy(run.images[b])))
-        for name, card, ref in (("deltas", deltas, ref_d),
-                                ("logits", logits, ref_l)):
-            card = card.cpu()
-            err = (card - ref).abs()
-            worst = float(err.max())
-            print(f"path: batch {b} {name} {tuple(card.shape)} max|card-cpu|"
-                  f"={worst:.3g} (|cpu| <= {float(ref.abs().max()):.3g})")
-            if not bool((err <= 1e-3 + 1e-3 * ref.abs()).all()):
-                raise AssertionError(f"batch {b} {name} differ: {worst}")
-        boxes, scores = decode_boxes_and_scores(anchors_t, deltas, logits,
-                                                run.config)
-        want = nms.combined_nms(
-            boxes.cpu(), scores.cpu(),
-            max_detections_per_class=cpu_cfg.max_detections_per_class,
-            max_total_detections=cpu_cfg.max_total_detections,
-            iou_threshold=cpu_cfg.nms_iou_threshold,
-            score_threshold=cpu_cfg.nms_score_threshold,
-            prefilter_anchors=cpu_cfg.nms_prefilter_anchors)
-        got = run.results[b]
-        classes = torch.where(want.classes >= 0, want.classes + 1,
-                              torch.zeros_like(want.classes))
-        if not (torch.equal(got.classes.cpu(), classes)
-                and torch.equal(got.valid.cpu(), want.valid)):
-            raise AssertionError(f"batch {b}: classes/valid differ")
-        box_err = float((got.boxes.cpu() - want.boxes).abs().max())
-        score_err = float((got.scores.cpu() - want.scores).abs().max())
-        print(f"path: batch {b} NMSResult vs CPU plain path: classes and "
-              f"valid equal (valid={got.valid.tolist()}), max box err "
-              f"{box_err:.3g}, max score err {score_err:.3g}")
-        if box_err > 1e-6 or score_err > 1e-6:
-            raise AssertionError(f"batch {b}: boxes/scores differ")
-    del cpu_model
+    run, launches = serving_path("mobilenet_v2", PATH_IMAGES, 2, PATH_BATCH)
+    vgg_runs, vgg_launches = {}, {}
+    for name in VGG_CONFIGS:
+        vgg_runs[name], vgg_launches[name] = serving_path(
+            name, VGG_PATH_IMAGES, 1, VGG_CPU_IMAGES)
     match_launches = train_path(cfg)
     train_step_card_vs_cpu(cfg)
 
     section("4. timing")
-    predict_fn = make_predict_fn(run.model, run.anchors, run.config)
-    for bs, iters in ((PATH_BATCH, 30), (64, 10)):
-        x = torch.from_numpy(images[bs]).to(device)
-        ms = time_ms(lambda: predict_fn(x), iters)
-        print(f"timing: serving {bs * 1e3 / ms:.1f} img/s at batch {bs} "
-              f"({ms:.3f} ms per batch, uint8 on device -> NMSResult)")
-    rows = {}
-    for r, (boxes, scores) in sorted(cands.items()):
-        k = scores.shape[1]
-
-        def call(boxes=boxes, scores=scores):
-            return nms_keep.nms_keep_cuda(boxes, scores, *thr)
-
-        ms = time_ms(call, 200)
-        dev_us = graph_us(call)
-        h_us = host_us(call)
-        plain = time_ms(
-            lambda: nms_keep.nms_keep_reference(boxes, scores, *thr), 10)
-        bound, bound_by = keep_bound(r, k)
-        rows[r] = dict(ms=ms, device_us=dev_us, host_us=h_us, plain_ms=plain,
-                       bound_ms=bound, bound_by=bound_by)
-        print(f"timing: nms_keep R={r} K={k}: kernel {ms:.5f} ms/call "
-              f"through the wrapper, device {dev_us:.2f} us per launch "
-              f"(graph replay), host {h_us:.2f} us per call, plain "
-              f"{plain:.5f} ms/call, bound {bound:.6f} ms ({bound_by})")
+    fits = time_serving(run, images[64], ((PATH_BATCH, 30), (64, 10)),
+                        "mobilenet_v2")
+    if set(fits) != {PATH_BATCH, 64}:
+        raise AssertionError(f"mobilenet_v2 serves at batches {sorted(fits)}"
+                             f" only")
+    for name in VGG_CONFIGS:
+        fits = time_serving(vgg_runs[name], vgg_images[name],
+                            ((PATH_BATCH, 10), (64, 5)), name)
+        if 64 not in fits:
+            fits.update(time_serving(vgg_runs[name], vgg_images[name],
+                                     ((32, 5),), name))
+        if PATH_BATCH not in fits or len(fits) < 2:
+            raise AssertionError(f"{name} serves at batches {sorted(fits)} "
+                                 f"only: neither 64 nor 32 fits")
+    rows = {r: time_keep(boxes, scores, thr, "mobilenet_v2")
+            for r, (boxes, scores) in sorted(cands.items())}
+    vgg_rows = {name: time_keep(boxes, scores, thr, name)
+                for name, (boxes, scores) in vgg_cands.items()}
     step_ms = time_train_step(cfg, device)
     print(f"timing: train {step_ms:.3f} ms per step, "
           f"{TRAIN_BATCH * 1e3 / step_ms:.1f} img/s at batch {TRAIN_BATCH} "
           f"(augmentation on, device-resident uint8 data)")
-    args = (m_anchors, m_boxes, m_labels, cfg.iou_threshold, cfg.variances)
-    me_ms = time_ms(lambda: match_encode.match_encode_cuda(*args), 200)
-    me_plain = time_ms(lambda: matching.match_targets(*args), 20)
-    b, g = m_labels.shape
-    n = m_anchors.shape[0]
-    me_bound, me_bound_by = match_bound(b, n, g)
-    print(f"timing: match_encode B={b} N={n} G={g}: kernel {me_ms:.5f} "
-          f"ms/call, plain {me_plain:.5f} ms/call, bound {me_bound:.6f} ms "
-          f"({me_bound_by})")
+    me_row = time_match(m_anchors, m_boxes, m_labels, cfg)
+    me_rows = {batch[0].shape[0]: time_match(*batch, get_hyper_params(name))
+               for name, batch in vgg_match.items()}
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"],
@@ -632,8 +750,10 @@ def main() -> int:
     print(smi.stdout.strip().splitlines()[0])
 
     section("5. kernels")
+    print(f"chip_smoke: whole run {time.perf_counter() - t_start:.1f} s")
     r_path = PATH_BATCH * (cfg.total_labels - 1)
     path_row, big_row = rows[r_path], rows[max(rows)]
+    timed = ("ms", "device_us", "host_us", "plain_ms", "bound_ms")
     entry = {
         "name": "nms_keep", "route": "cuda",
         "source": "tfssd_torch/csrc/nms_keep.cu",
@@ -642,19 +762,24 @@ def main() -> int:
         "launches": launches, "max_abs_err": float(max(parity.values())),
         **path_row, "library_ms": None, "bit_equal": True,
         "shape": f"R={r_path},K={cfg.max_detections_per_class}",
-        **{f"{key}_R{max(rows)}": big_row[key]
-           for key in ("ms", "device_us", "host_us", "plain_ms", "bound_ms")},
+        **{f"{key}_R{max(rows)}": big_row[key] for key in timed},
     }
+    for name in VGG_CONFIGS:
+        entry[f"launches_{name}"] = vgg_launches[name]
+        entry.update({f"{key}_{name}": vgg_rows[name][key]
+                      for key in timed})
+    b, g = m_labels.shape
     match_entry = {
         "name": "match_encode", "route": "cuda",
         "source": "tfssd_torch/csrc/match_encode.cu",
         "replaces": reference_site("ops/kernels/match_encode.py",
                                    "match_encode_pallas"),
         "launches": match_launches, "max_abs_err": match_err,
-        "ms": me_ms, "plain_ms": me_plain, "bound_ms": me_bound,
-        "bound_by": me_bound_by, "library_ms": None,
-        "labels_bit_equal": True, "shape": f"B={b},N={n},G={g}",
+        **me_row, "library_ms": None, "labels_bit_equal": True,
+        "shape": f"B={b},N={m_anchors.shape[0]},G={g}",
     }
+    for n, row in me_rows.items():
+        match_entry.update({f"{key}_N{n}": row[key] for key in timed})
     print(json.dumps({"kernels": [entry, match_entry]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -28,11 +28,12 @@ import importlib, pkgutil
 import tfssd_torch, tfssd_torch.predict, tfssd_torch.trainer, chip_smoke
 for mod in pkgutil.walk_packages(tfssd_torch.__path__, "tfssd_torch."):
     importlib.import_module(mod.name)
-# the training slice's modules, named so that a rename cannot drop them
+# the training slice's modules and the VGG16 backbone, named so that a
+# rename cannot drop them
 for name in ("ops.matching", "ops.kernels.match_encode", "ops.losses",
              "data.augment", "data.loader", "train", "trainer",
              "profile_train", "utils.checkpoint", "utils.metrics",
-             "utils.io", "utils.convert"):
+             "utils.io", "utils.convert", "models.vgg16"):
     assert "tfssd_torch." + name in sys.modules, name
 leaked = sorted(n for n in sys.modules
                 if n.split(".")[0] in {BLOCKED!r} and sys.modules[n] is not None)
@@ -90,3 +91,25 @@ def test_chip_smoke_fails_without_a_card_or_without_the_port(tmp_path):
                           timeout=300)
     assert proc.returncode != 0
     assert '"ok"' not in proc.stdout
+
+
+@pytest.mark.cuda
+def test_predict_serves_ssd512_on_the_card():
+    # Here, not beside the VGG16 parity tests: those import JAX, which the
+    # card's machine lacks.
+    import torch
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the keep kernel has no CPU mode")
+    from tfssd_torch import predict
+    from tfssd_torch.ops.kernels import nms_keep
+
+    nms_keep.LAUNCHES = 0
+    run = predict.main(["--backbone", "vgg16_512", "--random-weights",
+                        "--limit", "4", "--batch-size", "2"])
+    torch.cuda.synchronize()
+    assert run.config.img_size == 512
+    assert nms_keep.LAUNCHES == len(run.results) == 2
+    assert run.outputs[0][0].shape == (2, 24564, 4)
+    assert run.outputs[0][0].is_cuda
+    assert all(torch.isfinite(t).all() for out in run.outputs for t in out)

@@ -127,7 +127,7 @@ def test_convert_layouts_and_unknown_keys():
     assert list(flat) == ["params/blk/conv/kernel"]
     assert convert.variables_to_state_dict(flat).keys() == sd.keys()
     with pytest.raises(KeyError):
-        convert.variables_to_state_dict({"params": {"blk": {"gamma": 1.0}}})
+        convert.variables_to_state_dict({"params": {"blk": {"beta": 1.0}}})
     with pytest.raises(RuntimeError):  # a key the model does not have
         convert.load_variables(
             tlayers.ConvBN(1, 5, 3, groups=1, fold_bn=True),

@@ -189,6 +189,21 @@ def test_predict_cli_with_npz_weights(trained, jax_side, tmp_path):
     assert abs(run.mean_ap - jax_side["map"]) <= 1e-4
 
 
+def test_predict_cli_with_folded_npz_weights(trained, jax_side, tmp_path):
+    # Folded tree (the JAX fold_for_serving's output) in the .npz: the CLI
+    # reads it as folded and serves it as it is.
+    variables, _ = trained
+    _, _, fvars = j_fold(j_hyper("mobilenet_v2"), variables)
+    path = tmp_path / "mbv2_folded.npz"
+    np.savez(path, **flatten_tree(jax.tree_util.tree_map(np.asarray,
+                                                         dict(fvars))))
+    run = tpredict.main(["--weights", str(path), "--limit", str(N_IMAGES),
+                         "--batch-size", str(BATCH), "--device", "cpu"])
+    assert run.config.fold_bn
+    assert sum(run.num_valid) == N_IMAGES
+    assert abs(run.mean_ap - jax_side["map"]) <= 1e-4
+
+
 def test_unfolded_model_matches(trained):
     variables, batches = trained
     images = batches[0]["image"][:2]

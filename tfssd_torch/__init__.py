@@ -10,7 +10,8 @@ standard library only. Its structure mirrors the JAX package's file names:
   ops/matching.py      gt matching + target encoding (plain version)
   ops/losses.py        hard-negative-mined SSD loss
   ops/kernels/         hand-written CUDA kernels, their plain versions, build
-  models/              MobileNetV2 trunk + extras, multibox head, SSD, decoder
+  models/              MobileNetV2 and VGG16 (SSD300, SSD512) trunks +
+                       extras, multibox head, SSD, decoder
   utils/fold_bn.py     BatchNorm folding for serving
   utils/convert.py     Flax variables / TrainState (numpy) -> torch
   utils/checkpoint.py  torch.save checkpoints, best-3 retention, resume

@@ -5,8 +5,9 @@ NCHW modules whose parameter names follow the Flax tree (ConvBN holds
 
 TF "SAME" padding is asymmetric for stride 2: at 300 input it pads (0, 1)
 for 300->150, 150->75, 38->19, 10->5 and 2->1, and (1, 1) for 75->38,
-19->10, 5->3 and 3->2. `SameConv2d` computes it from the input size; a
-symmetric `padding=1` would shift every sample.
+19->10, 5->3 and 3->2. `SameConv2d` and `same_max_pool2d` compute it from
+the input size; a symmetric `padding=1` would shift every sample. A max
+pool pads with -inf, as Flax's nn.max_pool does.
 
 BatchNorm follows Flax's nn.BatchNorm: epsilon 1e-3, momentum taken from
 SSDConfig.bn_momentum (Flax's 0.99 is torch's 0.01), and in train mode the
@@ -27,28 +28,45 @@ BN_EPSILON = 1e-3
 BN_MOMENTUM = 0.99  # Flax convention; SSDConfig.bn_momentum's default
 
 
-def same_padding(size: int, kernel: int, stride: int) -> Tuple[int, int]:
+def same_padding(size: int, kernel: int, stride: int,
+                 dilation: int = 1) -> Tuple[int, int]:
     """(low, high) TF/Flax SAME padding of one spatial dimension."""
     out = -(-size // stride)
-    total = max((out - 1) * stride + kernel - size, 0)
+    span = (kernel - 1) * dilation + 1
+    total = max((out - 1) * stride + span - size, 0)
     return total // 2, total - total // 2
 
 
 class SameConv2d(nn.Conv2d):
     """nn.Conv2d with TF/Flax "SAME" padding, computed from the input size
     at call time (construct it with nn.Conv2d's arguments, padding left
-    at 0)."""
+    at 0). A dilated kernel pads for its span: fc6's 3x3 at dilation 6
+    pads 6 on each side."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         (kh, kw), (sh, sw) = self.kernel_size, self.stride
-        ph = same_padding(x.shape[-2], kh, sh)
-        pw = same_padding(x.shape[-1], kw, sw)
+        dh, dw = self.dilation
+        ph = same_padding(x.shape[-2], kh, sh, dh)
+        pw = same_padding(x.shape[-1], kw, sw, dw)
         if ph[0] == ph[1] and pw[0] == pw[1]:
             return F.conv2d(x, self.weight, self.bias, self.stride,
-                            (ph[0], pw[0]), 1, self.groups)
+                            (ph[0], pw[0]), self.dilation, self.groups)
         x = F.pad(x, (pw[0], pw[1], ph[0], ph[1]))
-        return F.conv2d(x, self.weight, self.bias, self.stride, 0, 1,
-                        self.groups)
+        return F.conv2d(x, self.weight, self.bias, self.stride, 0,
+                        self.dilation, self.groups)
+
+
+def same_max_pool2d(x: torch.Tensor, kernel: int,
+                    stride: int) -> torch.Tensor:
+    """Flax's nn.max_pool(x, (kernel, kernel), (stride, stride), "SAME") on
+    NCHW: -inf padding, (0, 1) where TF pads asymmetrically (75 -> 38 at
+    2x2 stride 2)."""
+    ph = same_padding(x.shape[-2], kernel, stride)
+    pw = same_padding(x.shape[-1], kernel, stride)
+    if ph[0] == ph[1] and pw[0] == pw[1]:
+        return F.max_pool2d(x, kernel, stride, (ph[0], pw[0]))
+    x = F.pad(x, (pw[0], pw[1], ph[0], ph[1]), value=float("-inf"))
+    return F.max_pool2d(x, kernel, stride)
 
 
 class FlaxBatchNorm2d(nn.BatchNorm2d):
@@ -128,17 +146,55 @@ class InvertedResidual(nn.Module):
         return y + x if self.residual else y
 
 
-class ExtraFeatureBlock(nn.Module):
-    """SSD extra block: 1x1 reduce -> 3x3 stride-2 SAME downsample, each
-    ConvBN + ReLU6 (the MobileNetV2 extras; the VGG16 form, bias + ReLU
-    with VALID final stages, is not ported yet)."""
+class L2Norm(nn.Module):
+    """Channelwise L2 normalisation with a learned per-channel scale
+    (conv4_3 of VGG16-SSD): x / sqrt(sum_c x^2 + 1e-10) * gamma, in
+    float32. Not F.normalize, which divides by max(|x|, eps). gamma starts
+    at `scale_init` (20)."""
 
-    def __init__(self, in_channels: int, reduce_features: int, features: int,
-                 fold_bn: bool = False, bn_momentum: float = BN_MOMENTUM):
+    def __init__(self, channels: int, scale_init: float = 20.0):
         super().__init__()
-        bn = dict(fold_bn=fold_bn, bn_momentum=bn_momentum)
-        self.reduce = ConvBN(in_channels, reduce_features, 1, **bn)
-        self.down = ConvBN(reduce_features, features, 3, 2, **bn)
+        self.scale_init = scale_init
+        self.gamma = nn.Parameter(torch.empty(channels))
+        self.reset_parameters()
+
+    def reset_parameters(self) -> None:
+        with torch.no_grad():
+            self.gamma.fill_(self.scale_init)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.down(self.reduce(x))
+        xf = x.float()
+        norm = torch.sqrt((xf * xf).sum(dim=1, keepdim=True) + 1e-10)
+        return (xf / norm * self.gamma[:, None, None]).to(x.dtype)
+
+
+class ExtraFeatureBlock(nn.Module):
+    """SSD extra block: 1x1 reduce -> 3x3 downsample. With use_bn (the
+    MobileNetV2 extras) each conv is a ConvBN + ReLU6 (`reduce.conv`,
+    `reduce.bn`, ...) and the downsample is stride 2 SAME; without (the
+    VGG16 extras) each is a biased conv + ReLU (`reduce`, `down`) and the
+    downsample takes stride 2 or 1 and Flax padding "SAME" or "VALID"."""
+
+    def __init__(self, in_channels: int, reduce_features: int, features: int,
+                 stride: int = 2, padding: str = "SAME", use_bn: bool = True,
+                 fold_bn: bool = False, bn_momentum: float = BN_MOMENTUM):
+        super().__init__()
+        if padding not in ("SAME", "VALID"):
+            raise ValueError(f"unknown padding {padding!r}")
+        if use_bn:
+            if (stride, padding) != (2, "SAME"):
+                raise ValueError("the BatchNorm form downsamples 3x3 "
+                                 "stride 2 SAME only")
+            bn = dict(fold_bn=fold_bn, bn_momentum=bn_momentum)
+            self.reduce = ConvBN(in_channels, reduce_features, 1, **bn)
+            self.down = ConvBN(reduce_features, features, 3, 2, **bn)
+        else:
+            self.reduce = SameConv2d(in_channels, reduce_features, 1)
+            conv = SameConv2d if padding == "SAME" else nn.Conv2d
+            self.down = conv(reduce_features, features, 3, stride)
+        self.use_bn = use_bn
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.use_bn:
+            return self.down(self.reduce(x))
+        return F.relu(self.down(F.relu(self.reduce(x))))

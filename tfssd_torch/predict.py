@@ -6,6 +6,11 @@ synthetic eval), run as
     python -m tfssd_torch.predict --backbone mobilenet_v2 --dataset synthetic \
         --limit 32 --batch-size 8 --random-weights --seed 0 [--device cpu]
     python -m tfssd_torch.predict --weights ssd_mobilenet_v2_7680.npz ...
+    python -m tfssd_torch.predict --backbone vgg16 --weights ssd_vgg16_4720.npz
+    python -m tfssd_torch.predict --backbone vgg16_512 --random-weights ...
+
+--backbone is a config name of get_hyper_params: mobilenet_v2 and vgg16
+(SSD300), vgg16_512 (SSD512).
 
 --weights takes an .npz of the Flax variable tree with '/'-joined keys
 (utils/convert.py:flatten_tree; README.md shows how to write one from the
@@ -43,6 +48,8 @@ VOC_CLASSES = (
 )
 LABELS = ("bg",) + VOC_CLASSES
 
+BACKBONES = ("mobilenet_v2", "vgg16", "vgg16_512")
+
 # The evaluation split the JAX predictor serves for --dataset synthetic.
 SYNTHETIC_EVAL_SIZE = 128
 SYNTHETIC_EVAL_SEED = 10_000
@@ -51,8 +58,8 @@ SYNTHETIC_EVAL_SEED = 10_000
 def load_model(backbone: str = "mobilenet_v2", weights: Optional[str] = None,
                seed: int = 0, device="cuda"):
     """(config, model) ready to serve: weights from an .npz of the Flax tree
-    (folded or not) or seeded random weights, BatchNorm folded, eval mode,
-    on `device`."""
+    (folded or not) or seeded random weights, BatchNorm folded (VGG16 has
+    none), eval mode, on `device`."""
     dev = resolve_device(device)
     cfg = get_hyper_params(backbone)
     if weights is not None:
@@ -129,9 +136,8 @@ def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="python -m tfssd_torch.predict",
         description="tfssd_torch predictor (PyTorch/CUDA serving path)")
-    p.add_argument("--backbone", default="mobilenet_v2",
-                   choices=("mobilenet_v2",),
-                   help="only MobileNetV2 is ported so far")
+    p.add_argument("--backbone", default="mobilenet_v2", choices=BACKBONES,
+                   help="SSD300-MobileNetV2, SSD300-VGG16 or SSD512-VGG16")
     p.add_argument("--dataset", default="synthetic", choices=("synthetic",))
     p.add_argument("--limit", type=int, default=None)
     p.add_argument("--batch-size", type=int, default=32)

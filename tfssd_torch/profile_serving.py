@@ -1,15 +1,20 @@
-"""Where the serving time goes on the card: one torch.profiler window.
+"""Where the serving time goes on the card: two torch.profiler windows.
 
-    python -m tfssd_torch.profile_serving [--batch-size 64] [--iters 10]
+    python -m tfssd_torch.profile_serving [--backbone vgg16] \
+        [--batch-size 64] [--iters 10]
 
-Serves SSD300-MobileNetV2 at full width with seeded weights on
+Serves a configuration (SSD300-MobileNetV2 unless --backbone says
+otherwise: vgg16 is SSD300-VGG16, vgg16_512 SSD512-VGG16) at full width
+with seeded weights on
 device-resident uint8 synthetic images (uint8 -> NMSResult, as
 chip_smoke.py times it) and prints, per batch: the wall time (host clock
 around synchronised work), the device busy time (the sum of the CUDA
 kernels' device time in the window) and the idle share, the device time by
-kind of kernel, the heaviest kernels, and the NMS keep kernel's device time
-per launch. Needs a card: where the profiler records no device time it
-says "not measured".
+kind of kernel, the heaviest kernels, the NMS keep kernel's device time
+per launch, and from a second, shorter window that records shapes (so
+that its overhead stays out of the first) the convolutions by input and
+weight shape with their device time. Needs a card: where the profiler
+records no device time it says "not measured".
 """
 
 from __future__ import annotations
@@ -27,9 +32,15 @@ from tfssd_torch import predict
 from tfssd_torch.data.synthetic import SyntheticDataset
 from tfssd_torch.models.decoder import make_predict_fn
 
+# Batches in the shape-recording window.
+_SHAPE_ITERS = 2
+
 # Kernel-name fragments -> kind, first match wins.
 _KINDS = (
     ("nms_keep", "nms_keep (hand-written CUDA)"),
+    # cuDNN's FFT convolution engine (DSE::*fft*, the complex products)
+    ("fft", "convolution (cuDNN)"),
+    ("complex", "convolution (cuDNN)"),
     ("sort", "sort (prefilter, per-class top-K, merge)"),
     ("Sort", "sort (prefilter, per-class top-K, merge)"),
     ("conv", "convolution (cuDNN)"),
@@ -52,13 +63,15 @@ def kind_of(name: str) -> str:
 
 def main(argv: Optional[Sequence[str]] = None) -> None:
     p = argparse.ArgumentParser(prog="python -m tfssd_torch.profile_serving")
+    p.add_argument("--backbone", default="mobilenet_v2",
+                   choices=predict.BACKBONES)
     p.add_argument("--batch-size", type=int, default=64)
     p.add_argument("--iters", type=int, default=10)
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
     args = p.parse_args(argv)
 
-    cfg, model = predict.load_model("mobilenet_v2", None, args.seed,
+    cfg, model = predict.load_model(args.backbone, None, args.seed,
                                     args.device)
     device = next(model.parameters()).device
     dataset = SyntheticDataset(predict.SYNTHETIC_EVAL_SIZE,
@@ -96,7 +109,8 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
         by_kind[kind_of(evt.key)] += us
     name = (torch.cuda.get_device_name(device) if device.type == "cuda"
             else "cpu")
-    print(f"profile: batch {args.batch_size}, {args.iters} iterations, "
+    print(f"profile: {args.backbone}, batch {args.batch_size}, {args.iters} "
+          f"iterations, cudnn.benchmark={torch.backends.cudnn.benchmark}, "
           f"device={name}")
     print(f"profile: wall {wall_ms:.3f} ms per batch "
           f"({args.batch_size * 1e3 / wall_ms:.1f} img/s, profiler on)")
@@ -119,6 +133,16 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
         print(f"profile: nms_keep device time {us / calls:.2f} us per launch "
               f"at R={args.batch_size * (cfg.total_labels - 1)}, "
               f"K={cfg.max_detections_per_class}")
+
+    with profile(activities=activities, record_shapes=True) as prof:
+        for _ in range(_SHAPE_ITERS):
+            predict_fn(x)
+        sync()
+    convs = [(evt.device_time_total / _SHAPE_ITERS, evt.input_shapes[:2])
+             for evt in prof.key_averages(group_by_input_shape=True)
+             if evt.key == "aten::convolution"]
+    for us, shapes in sorted(convs, reverse=True)[:8]:
+        print(f"profile: conv {us:9.1f} us/batch input x weight {shapes}")
 
 
 if __name__ == "__main__":

@@ -16,7 +16,8 @@ is given, and raises when there is no card. It writes only under
 The index stream is the JAX trainer's: epoch e visits
 np.random.default_rng(seed * 10_000 + e) permutations of the training
 set. Not ported yet (ROADMAP.md): streamed feeding and VOC directories,
---port-h5, --bf16, --remat, --steps-per-call, --profile, VGG16/SSD512.
+--port-h5, --bf16, --remat, --steps-per-call, --profile, and VGG16/SSD512
+training (the port serves them: predict.py --backbone vgg16 / vgg16_512).
 """
 
 from __future__ import annotations

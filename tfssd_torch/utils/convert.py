@@ -10,6 +10,7 @@ The tree comes as nested dicts of numpy arrays ({'params': ...,
                       (C, 1, 3, 3)
   params/.../bias     -> .../bias
   params/.../bn/scale -> .../bn/weight
+  params/.../gamma    -> .../gamma (L2Norm's scale, VGG16's conv4_3_norm)
   batch_stats/.../bn/mean, var -> .../bn/running_mean, running_var
 
 Any leaf this does not know raises, and so does any state_dict entry that
@@ -29,7 +30,8 @@ import numpy as np
 import torch
 from torch import nn
 
-_PARAM_LEAVES = {"kernel": "weight", "bias": "bias", "scale": "weight"}
+_PARAM_LEAVES = {"kernel": "weight", "bias": "bias", "scale": "weight",
+                 "gamma": "gamma"}
 _STAT_LEAVES = {"mean": "running_mean", "var": "running_var"}
 
 

@@ -50,8 +50,10 @@ def fold_batch_norm(state: Dict[str, torch.Tensor]
 def fold_for_serving(config: SSDConfig, model: SSD) -> Tuple[SSDConfig, SSD]:
     """(config, model with BN) -> (folded config, folded model), on the
     model's device and in eval mode. Other config overrides are kept; an
-    already folded config passes through."""
-    if config.fold_bn:
+    already folded config, or a model without BatchNorm (VGG16), passes
+    through unchanged, as in the JAX package."""
+    if config.fold_bn or not any(isinstance(m, torch.nn.BatchNorm2d)
+                                 for m in model.modules()):
         return config, model
     cfg = dataclasses.replace(config, fold_bn=True).validate()
     ref = next(model.parameters())

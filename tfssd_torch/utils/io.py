@@ -13,7 +13,10 @@ import argparse
 import datetime
 import os
 
-VALID_BACKBONES = ("mobilenet_v2",)  # the VGG16 backbones are not ported
+# The trainer's choices. The port serves VGG16 and SSD512 too
+# (predict.py), but trains only MobileNetV2: "vgg16" and "vgg16_512" join
+# here when VGG16 training is ported (ROADMAP.md).
+VALID_BACKBONES = ("mobilenet_v2",)
 
 
 def handle_args(description: str = "tfssd_torch") -> argparse.ArgumentParser:
@@ -22,8 +25,8 @@ def handle_args(description: str = "tfssd_torch") -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(description=description)
     p.add_argument("--backbone", default="mobilenet_v2",
                    choices=VALID_BACKBONES,
-                   help="which SSD backbone to use (only MobileNetV2 is "
-                        "ported so far)")
+                   help="which SSD backbone to train (only MobileNetV2 "
+                        "trains in the port so far)")
     p.add_argument("--batch-size", type=int, default=32)
     p.add_argument("--dataset", default="synthetic", choices=("synthetic",),
                    help="VOC directories are not ported yet")

@@ -39,23 +39,29 @@ Phases, in order; any failure ends the run with a non-zero exit:
               The same for `--backbone vgg16` and `--backbone vgg16_512`
               at full width, 24 images at batch 8 (launches == batches),
               the first batch's outputs held against the CPU on 2 images.
-              training: `python -m tfssd_torch.trainer` (its main()) at
-              full width, batch 32, 2 epochs x 3 steps with augmentation,
-              one validation batch per epoch, checkpoints under build/;
-              the match/encode launch counter is set to 0 just before and
-              must equal train steps + validation batches just after;
-              finite losses; a checkpoint written, and --resume continues
-              from its step. One train step (augmentation off, batch 8,
-              synthetic images and noise images under the same gts) from
-              the same seeded weights on the card and on the CPU: losses
-              and gradients held by STEP_GATES (float32 without TF32),
-              with a float64 CPU step as the witness of each one's
-              distance to the exact gradient and the same step in TF32
-              on the card as a control that the gates must refuse.
+              training: `python -m tfssd_torch.trainer --backbone <b>`
+              (its main()) for mobilenet_v2, vgg16 and vgg16_512 at full
+              width (300 / 300 / 512 input, 2,268 / 8,732 / 24,564
+              anchors), batch 32 (16 where 32 does not fit; neither
+              fails), 2 epochs x 3 steps with augmentation, one
+              validation batch per epoch, checkpoints under build/, each
+              config its own directory; the match/encode launch counter
+              is set to 0 just before and must equal train steps +
+              validation batches just after; finite losses; a checkpoint
+              written, and --resume continues from its step; the peak
+              device memory printed. For each config, one train step
+              (augmentation off, batch 8 / 2 / 1, synthetic images and
+              noise images under the same gts) from the same seeded
+              weights on the card and on the CPU: the card's losses and
+              gradients (float32 without TF32) held against the float64
+              CPU step, the witness of the exact gradient, by the
+              config's STEP_GATES; the same step in TF32 on the card is a
+              control that the gates must refuse; the float32 CPU step's
+              distance is printed beside them.
   4. timing — serving img/s at batch 8 and 64 (device-resident uint8
               images -> NMSResult), for each VGG16 config at batch 8 and
-              the largest of 64 / 32 that fits; train ms/step and img/s at
-              batch 32
+              the largest of 64 / 32 that fits; train ms/step, img/s and
+              peak device memory of each config at its training batch
               (augmentation on, device-resident data); each kernel's and
               its plain version's ms per call (nms_keep at R = 160 and
               R = 1280 and on each VGG16 config's R = 160, match_encode at
@@ -65,8 +71,9 @@ Phases, in order; any failure ends the run with a non-zero exit:
               between launches) and the host us per call (host clock
               around 200 back-to-back wrapper calls, launches included);
               the card's name and power limit.
-  5. the whole run's seconds, the `kernels` JSON line, then the one-line
-     JSON result, last.
+  5. the whole run's seconds, the `kernels` JSON line (match_encode's
+     launches on each train path and each VGG16 config's train batch
+     among its keys), then the one-line JSON result, last.
 
 It exits non-zero without a result when no CUDA device is available, and
 in a directory that holds this script without the tfssd_torch package.
@@ -124,10 +131,13 @@ PATH_IMAGES = 32
 VGG_CONFIGS = ("vgg16", "vgg16_512")
 VGG_PATH_IMAGES = 24
 VGG_CPU_IMAGES = 2
+TRAIN_CONFIGS = ("mobilenet_v2",) + VGG_CONFIGS
 TRAIN_BATCH = 32
 TRAIN_EPOCHS = 2
 TRAIN_STEPS = 3
-PARITY_BATCH = 8
+# Images of the card-vs-CPU train step: its float64 CPU witness costs
+# ~40x (SSD300-VGG16) and ~110x (SSD512) a MobileNetV2 image.
+PARITY_BATCH = {"mobilenet_v2": 8, "vgg16": 2, "vgg16_512": 1}
 SEED = 0
 KERNELS = ("nms_keep", "match_encode")
 
@@ -478,11 +488,13 @@ def time_match(anchors, boxes, labels, cfg) -> dict:
                 bound_ms=bound, bound_by=bound_by)
 
 
-def train_path(cfg, device: str = "cuda") -> int:
-    """Drive the trainer at full width on the card, then resume it; return
-    the match_encode launches of the first run."""
-    out = ROOT / "build" / "chip_smoke_train"
-    common = ["--device", device, "--batch-size", str(TRAIN_BATCH),
+def train_path(backbone: str, batch: int) -> int:
+    """Drive `python -m tfssd_torch.trainer --backbone <backbone>` at full
+    width on the card, then resume it; return the match_encode launches of
+    the first run."""
+    out = ROOT / "build" / "chip_smoke_train" / backbone
+    common = ["--backbone", backbone, "--device", "cuda",
+              "--batch-size", str(batch),
               "--dataset", "synthetic", "--synthetic-size", "256",
               "--steps-per-epoch", str(TRAIN_STEPS), "--val-limit", "1",
               "--seed", str(SEED), "--log-every", "1",
@@ -490,34 +502,54 @@ def train_path(cfg, device: str = "cuda") -> int:
               "--log-dir", str(out / "logs")]
     if out.exists():
         shutil.rmtree(out)
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
     match_encode.LAUNCHES = 0
     run = trainer.main(["--epochs", str(TRAIN_EPOCHS)] + common)
     torch.cuda.synchronize()
     launches = match_encode.LAUNCHES
+    peak = torch.cuda.max_memory_allocated()
     want = run.steps_run + run.val_batches
-    print(f"path: trainer ran {run.steps_run} steps and {run.val_batches} "
-          f"validation batches, match_encode launches={launches}, "
-          f"val_losses={run.val_losses}, e2e img/s={run.e2e_img_per_s}")
+    print(f"path: {backbone} trainer at batch {batch} ran {run.steps_run} "
+          f"steps and {run.val_batches} validation batches, match_encode "
+          f"launches={launches}, val_losses={run.val_losses}, e2e "
+          f"img/s={run.e2e_img_per_s}, peak device memory "
+          f"{peak / 2**30:.2f} GiB ({held / 2**30:.2f} GiB held before)")
     if launches != want:
         raise AssertionError(f"match_encode launched {launches} times for "
-                             f"{want} train steps + val batches")
+                             f"{want} train steps + val batches ({backbone})")
     losses = [m["loss"] for m in run.train_metrics] + list(
         run.val_losses.values())
     if not all(math.isfinite(x) for x in losses):
-        raise AssertionError(f"non-finite loss: {losses}")
+        raise AssertionError(f"non-finite loss ({backbone}): {losses}")
     from tfssd_torch.utils.checkpoint import CheckpointManager
     latest = CheckpointManager(run.model_path).latest_step()
     if latest != run.state.step:
         raise AssertionError(f"latest checkpoint {latest}, trained to step "
-                             f"{run.state.step}")
+                             f"{run.state.step} ({backbone})")
+    del run
     resumed = trainer.main(["--epochs", str(TRAIN_EPOCHS + 1), "--resume"]
                            + common)
-    print(f"path: --resume from step {latest} ran {resumed.steps_run} steps "
-          f"to step {resumed.state.step}")
+    print(f"path: {backbone} --resume from step {latest} ran "
+          f"{resumed.steps_run} steps to step {resumed.state.step}")
     if (resumed.steps_run != TRAIN_STEPS
             or resumed.state.step != latest + TRAIN_STEPS):
-        raise AssertionError("--resume did not continue from the checkpoint")
+        raise AssertionError(f"--resume did not continue from the "
+                             f"checkpoint ({backbone})")
     return launches
+
+
+def train_path_that_fits(backbone: str):
+    """(batch, match_encode launches) of train_path at batch 32, or at 16
+    where 32 does not fit in device memory; fails where neither fits."""
+    for batch in (TRAIN_BATCH, TRAIN_BATCH // 2):
+        try:
+            return batch, train_path(backbone, batch)
+        except torch.cuda.OutOfMemoryError:
+            torch.cuda.empty_cache()
+            print(f"path: {backbone} training at batch {batch} does not fit")
+    raise AssertionError(f"{backbone} trains at neither batch "
+                         f"{TRAIN_BATCH} nor {TRAIN_BATCH // 2}")
 
 
 def _one_train_step(cfg, device: str, host, dtype=torch.float32,
@@ -554,111 +586,138 @@ def _rel_norm(got, want, names) -> float:
     return float((g - w).norm() / w.norm())
 
 
-# Gates of the card-vs-CPU train step, each near the geometric mean of the
-# largest reading of the sound float32 step and the smallest reading of a
-# control that computes less exactly (the same step with TF32 convolutions
-# and matmuls on the card), over noise and synthetic images (this script
-# on an NVIDIA H100 80GB HBM3 at 700 W; PERF.md): relative loss error 2.5e-7 /
-# 1.8e-4; head gradient in relative norm 2.0e-6 / 1.7e-2; whole gradient
-# 6.2e-3 / 0.25; the card's distance to the float64 CPU step over the
-# float32 CPU step's 1.6 / 59.
-STEP_GATES = {"loss": 1e-5, "head": 2e-4, "whole": 4e-2, "to_f64": 10.0}
+# Gates of the card's float32 train step against the float64 CPU witness,
+# each near the geometric mean of the largest reading of the sound step
+# and the smallest reading of a control that computes less exactly (the
+# same step with TF32 convolutions and matmuls on the card), over noise and
+# synthetic images (this script on an NVIDIA H100 80GB HBM3 at 700 W;
+# PERF.md): the largest relative loss error / the head gradient's and the
+# whole gradient's relative distance, sound step / control:
+#   MobileNetV2, batch 8: 1.0e-6 / 4.1e-4; 6.9e-6 / 5.1e-2; 1.0e-2 / 0.43.
+#     BatchNorm at random weights grows the rounding 2000x from the head
+#     to the stem.
+#   SSD300-VGG16, batch 2: 4.4e-7 / 1.1e-4; 7.2e-7 / 4.2e-3; 3.4e-4 /
+#     1.6e-2.
+#   SSD512-VGG16, batch 1: 2.2e-7 / 1.0e-4; 7.6e-7 / 1.8e-3; 4.3e-4 /
+#     1.3e-2.
+STEP_GATES = {
+    "mobilenet_v2": {"loss": 2e-5, "head": 6e-4, "whole": 6e-2},
+    "vgg16": {"loss": 7e-6, "head": 5e-5, "whole": 2.5e-3},
+    "vgg16_512": {"loss": 5e-6, "head": 4e-5, "whole": 2.5e-3},
+}
+
+# Parameter groups of each backbone, head to stem, whose card-vs-CPU
+# gradient distance is printed (where the rounding differences grow).
+DEPTH_GROUPS = {
+    "mobilenet_v2": ("backbone.extra", "backbone.head_conv",
+                     "backbone.block16", "backbone.block8.",
+                     "backbone.block0.", "backbone.stem"),
+    "vgg16": ("backbone.conv8", "backbone.fc7", "backbone.fc6",
+              "backbone.conv4_", "backbone.conv3_", "backbone.conv1_")}
+
+
+def _distances(got, want, names, head) -> dict:
+    """Relative distances of one step's (metrics, gradients) from
+    another's: the largest of the three losses', the head's and the whole
+    gradient's in relative norm, and whether num_pos agrees."""
+    (m, g), (want_m, want_g) = got, want
+    return {"loss": max(abs(m[k] - want_m[k]) / abs(want_m[k])
+                        for k in ("loss", "loc_loss", "conf_loss")),
+            "num_pos": m["num_pos"] == want_m["num_pos"],
+            "head": _rel_norm(g, want_g, head),
+            "whole": _rel_norm(g, want_g, names)}
 
 
 def _step_readings(cfg, card: str, host) -> dict:
     """One train step of `host` on the card (float32, and TF32 as the
-    control) and on the CPU (float32 and the float64 witness)."""
+    control) and on the CPU (float32, and the float64 witness); each one's
+    distances from the witness."""
     steps = {"card": _one_train_step(cfg, card, host),
              "tf32": _one_train_step(cfg, card, host, tf32=True),
              "cpu": _one_train_step(cfg, "cpu", host),
              "f64": _one_train_step(cfg, "cpu", host, torch.float64)}
-    names = sorted(steps["cpu"][1])
+    names = sorted(steps["f64"][1])
     head = [n for n in names if n.startswith("head.")]
-    out = {}
-    for run in ("card", "tf32"):
-        m, g = steps[run]
-        want_m, want_g = steps["cpu"]
-        f64_g = steps["f64"][1]
-        out[run] = {
-            "loss": max(abs(m[k] - want_m[k]) / abs(want_m[k])
-                        for k in ("loss", "loc_loss", "conf_loss")),
-            "num_pos": m["num_pos"] == want_m["num_pos"],
-            "head": _rel_norm(g, want_g, head),
-            "whole": _rel_norm(g, want_g, names),
-            "to_f64": (_rel_norm(g, f64_g, names)
-                       / _rel_norm(want_g, f64_g, names))}
+    out = {run: _distances(steps[run], steps["f64"], names, head)
+           for run in ("card", "tf32", "cpu")}
     out["by_depth"] = {
-        grp: _rel_norm(steps["card"][1], steps["cpu"][1],
+        grp: _rel_norm(steps["card"][1], steps["f64"][1],
                        [n for n in names if n.startswith(grp)])
-        for grp in ("backbone.extra", "backbone.head_conv",
-                    "backbone.block16", "backbone.block8.",
-                    "backbone.block0.", "backbone.stem")}
-    out["cpu_to_f64"] = {"head": _rel_norm(steps["cpu"][1], steps["f64"][1],
-                                           head),
-                         "whole": _rel_norm(steps["cpu"][1],
-                                            steps["f64"][1], names)}
+        for grp in DEPTH_GROUPS[cfg.backbone]}
     out["losses"] = {run: steps[run][0]["loss"] for run in steps}
     return out
 
 
-def _refused(reading: dict) -> list:
-    """The gates of STEP_GATES that `reading` fails."""
-    failed = [k for k in ("loss", "head", "whole", "to_f64")
-              if reading[k] > STEP_GATES[k]]
+def _refused(reading: dict, gates: dict) -> list:
+    """The gates that `reading` fails."""
+    failed = [k for k in ("loss", "head", "whole") if reading[k] > gates[k]]
     return failed + ([] if reading["num_pos"] else ["num_pos"])
 
 
-def train_step_card_vs_cpu(cfg, card: str = "cuda") -> dict:
-    """One train step, augmentation off, from the same seeded weights and
-    batch on the card (kernel) and on the CPU (plain), on two batches: the
-    images of SyntheticDataset(seed=0) and seeded uniform noise under the
-    same gts. Flat synthetic rectangles make neighbouring anchors' losses
-    tie exactly in the hard-negative ranking, where a rounding difference
-    moves the gradient to another anchor of the same loss; noise has no
-    such ties. At random weights BatchNorm grows rounding differences from
-    the head towards the stem, so the whole gradient is held looser than
-    the head's. A float64 CPU step is the witness that the card is as far
-    from the exact gradient as the float32 CPU is; the same step with TF32
-    on the card is the control that the gates must refuse."""
-    ds = SyntheticDataset(PARITY_BATCH, image_size=cfg.img_size, seed=0)
+def train_step_card_vs_cpu(name: str, card: str = "cuda") -> dict:
+    """One train step of config `name`, augmentation off, from the same
+    seeded weights and batch on the card (kernel) and on the CPU (plain),
+    on two batches: the images of SyntheticDataset(seed=0) and seeded
+    uniform noise under the same gts. The card's float32 step is held
+    against the float64 CPU step, the witness of the exact gradient, by
+    STEP_GATES[name]; the same step with TF32 on the card is the control
+    that the gates must refuse. The float32 CPU step is printed beside
+    them: at random weights it is no closer to the witness than the card,
+    and how far it lies depends on the host's CPU (MobileNetV2's whole
+    gradient 1.4e-2 to 8.1e-2 off). Flat synthetic rectangles make
+    neighbouring anchors' losses tie exactly in the hard-negative ranking,
+    where a rounding difference moves the gradient to another anchor of
+    the same loss; noise has no such ties. Rounding differences grow from
+    the head towards the stem (BatchNorm in MobileNetV2; VGG16 has no norm
+    but conv4_3's), so the whole gradient is held looser than the
+    head's."""
+    cfg, gates, batch = get_hyper_params(name), STEP_GATES[name], \
+        PARITY_BATCH[name]
+    ds = SyntheticDataset(batch, image_size=cfg.img_size, seed=0)
     synthetic, _ = stage_arrays(ds, cfg.max_gt_boxes)
     noise = dict(synthetic, image=np.random.default_rng(SEED).integers(
         0, 256, synthetic["image"].shape, dtype=np.uint8))
+    cpu = (f"{torch.backends.cpu.get_cpu_capability()}, "
+           f"{torch.get_num_threads()} threads")
     readings = {}
     for kind, host in (("noise", noise), ("synthetic", synthetic)):
         r = readings[kind] = _step_readings(cfg, card, host)
-        print(f"path: train step card vs cpu ({kind} images, batch "
-              f"{PARITY_BATCH}, no augmentation): losses "
+        print(f"path: {name} train step card vs cpu ({kind} images, batch "
+              f"{batch}, no augmentation; cpu {cpu}): losses "
               + ", ".join(f"{k} {v:.6f}" for k, v in r["losses"].items())
-              + "; float32 card: " + json.dumps(r["card"])
-              + "; TF32 control: " + json.dumps(r["tf32"])
-              + "; cpu float32 vs float64: " + json.dumps(r["cpu_to_f64"])
-              + "; card vs cpu by depth: " + json.dumps(r["by_depth"]))
-        failed = _refused(r["card"])
+              + "; vs the float64 witness: float32 card "
+              + json.dumps(r["card"])
+              + "; TF32 control " + json.dumps(r["tf32"])
+              + "; float32 cpu " + json.dumps(r["cpu"])
+              + "; card by depth " + json.dumps(r["by_depth"]))
+        failed = _refused(r["card"], gates)
         if failed:
-            raise AssertionError(f"train step card vs cpu ({kind}): "
-                                 f"{failed} beyond {STEP_GATES}")
+            raise AssertionError(f"{name} train step card vs cpu ({kind}): "
+                                 f"{failed} beyond {gates}")
     for kind, r in readings.items():
-        missed = set(STEP_GATES) - set(_refused(r["tf32"]))
+        missed = set(gates) - set(_refused(r["tf32"], gates))
         if missed:
-            raise AssertionError(f"the TF32 control ({kind}) passes the "
-                                 f"gates {sorted(missed)}: they cannot see "
-                                 f"a less exact step")
+            raise AssertionError(f"the TF32 control ({name}, {kind}) passes "
+                                 f"the gates {sorted(missed)}: they cannot "
+                                 f"see a less exact step")
     return readings
 
 
-def time_train_step(cfg, device) -> float:
-    """ms per train step at batch 32, augmentation on, device-resident
-    data (host clock around synchronised steps)."""
+def time_train_step(backbone: str, batch: int) -> None:
+    """Print the ms per train step of `backbone` at `batch`, augmentation
+    on, device-resident data (host clock around synchronised steps), and
+    the peak device memory of those steps."""
+    cfg = get_hyper_params(backbone)
     ds = SyntheticDataset(256, image_size=cfg.img_size, seed=0)
     host, n = stage_arrays(ds, cfg.max_gt_boxes)
-    data = {k: torch.from_numpy(host[k]).to(device)
+    data = {k: torch.from_numpy(host[k]).to(CARD)
             for k in ("image", "boxes", "labels")}
-    state = create_train_state(cfg, SEED, device, make_lr_schedule(100))
-    anchors = torch.from_numpy(generate_anchors(cfg)).to(device)
+    torch.cuda.reset_peak_memory_stats()
+    state = create_train_state(cfg, SEED, CARD, make_lr_schedule(100))
+    anchors = torch.from_numpy(generate_anchors(cfg)).to(CARD)
     step = make_cached_train_step(anchors, cfg, augment=True, seed=SEED)
     rows = torch.from_numpy(trainer.epoch_indices(
-        SEED, 0, n, 13, TRAIN_BATCH)).to(device)
+        SEED, 0, n, 13, batch)).to(CARD)
     for i in range(3):
         step(state, data, rows[i])
     torch.cuda.synchronize()
@@ -666,7 +725,11 @@ def time_train_step(cfg, device) -> float:
     for i in range(3, 13):
         step(state, data, rows[i])
     torch.cuda.synchronize()
-    return (time.perf_counter() - t0) * 1e3 / 10
+    ms = (time.perf_counter() - t0) * 1e3 / 10
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    print(f"timing: {backbone} train {ms:.3f} ms per step, "
+          f"{batch * 1e3 / ms:.1f} img/s at batch {batch} (augmentation on, "
+          f"device-resident uint8 data), peak device memory {peak:.2f} GiB")
 
 
 def main() -> int:
@@ -714,8 +777,9 @@ def main() -> int:
     for name in VGG_CONFIGS:
         vgg_runs[name], vgg_launches[name] = serving_path(
             name, VGG_PATH_IMAGES, 1, VGG_CPU_IMAGES)
-    match_launches = train_path(cfg)
-    train_step_card_vs_cpu(cfg)
+    trained = {name: train_path_that_fits(name) for name in TRAIN_CONFIGS}
+    for name in TRAIN_CONFIGS:
+        train_step_card_vs_cpu(name)
 
     section("4. timing")
     fits = time_serving(run, images[64], ((PATH_BATCH, 30), (64, 10)),
@@ -736,10 +800,8 @@ def main() -> int:
             for r, (boxes, scores) in sorted(cands.items())}
     vgg_rows = {name: time_keep(boxes, scores, thr, name)
                 for name, (boxes, scores) in vgg_cands.items()}
-    step_ms = time_train_step(cfg, device)
-    print(f"timing: train {step_ms:.3f} ms per step, "
-          f"{TRAIN_BATCH * 1e3 / step_ms:.1f} img/s at batch {TRAIN_BATCH} "
-          f"(augmentation on, device-resident uint8 data)")
+    for name, (batch, _) in trained.items():
+        time_train_step(name, batch)
     me_row = time_match(m_anchors, m_boxes, m_labels, cfg)
     me_rows = {batch[0].shape[0]: time_match(*batch, get_hyper_params(name))
                for name, batch in vgg_match.items()}
@@ -774,12 +836,16 @@ def main() -> int:
         "source": "tfssd_torch/csrc/match_encode.cu",
         "replaces": reference_site("ops/kernels/match_encode.py",
                                    "match_encode_pallas"),
-        "launches": match_launches, "max_abs_err": match_err,
+        "launches": trained["mobilenet_v2"][1],
+        "max_abs_err": match_err,
         **me_row, "library_ms": None, "labels_bit_equal": True,
         "shape": f"B={b},N={m_anchors.shape[0]},G={g}",
     }
     for n, row in me_rows.items():
         match_entry.update({f"{key}_N{n}": row[key] for key in timed})
+    for name in VGG_CONFIGS:
+        match_entry[f"train_batch_{name}"], match_entry[
+            f"launches_{name}"] = trained[name]
     print(json.dumps({"kernels": [entry, match_entry]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

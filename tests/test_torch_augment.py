@@ -8,12 +8,17 @@ parts of the port are held separately:
     the test replays augment_image's key splits with jax.random and hands
     the very uniforms JAX used to the port; image, boxes and labels must
     then agree (images within 1e-5: the resample is a float32 matrix
-    product summed in another order; boxes within 1e-6; labels equal);
+    product summed in another order; boxes within 1e-6; labels equal),
+    at s = 20 and at the configs' s = 300 and 512;
   * the sampler, sample_draws + crop_region, is held to a sequential
     numpy oracle of the reference's crop retry loop (a copy of the one in
     tests/test_augment_distribution.py) by the same statistics and
     tolerances as the JAX sampler is.
 """
+
+import os
+import subprocess
+import sys
 
 import numpy as np
 import pytest
@@ -97,6 +102,75 @@ def _jax_draws(keys, trials):
     out = {k: torch.from_numpy(np.array(v)) for k, v in d.items()}
     out["crop_choice"] = out["crop_choice"].long()
     return ta.AugmentDraws(**out)
+
+
+def _config_batch(s):
+    """Two seeded (s, s) images with 1-4 gts each and their JAX keys."""
+    rng = np.random.default_rng(s)
+    b, g = 2, 4
+    img = _image(rng, b, s)
+    boxes = np.zeros((b, g, 4), np.float32)
+    labels = np.zeros((b, g), np.int32)
+    for i in range(b):
+        for j in range(int(rng.integers(1, g + 1))):
+            y0, x0 = rng.uniform(0, 0.6, 2)
+            h, w = rng.uniform(0.15, 0.4, 2)
+            boxes[i, j] = [y0, x0, y0 + h, x0 + w]
+            labels[i, j] = rng.integers(1, 21)
+    return img, boxes, labels, jax.random.split(jax.random.key(s), b)
+
+
+# JAX's side of the config-size case, run where XLA may not emit FMA
+# instructions (--xla_cpu_max_isa=AVX), as tests/test_torch_nms.py runs
+# the keep kernel. XLA:CPU otherwise contracts the resample's sample
+# positions ((o + 0.5) / scale - t / scale - 0.5) into multiply-adds that
+# round once: the positions then move by ~s ulp, the weights with them,
+# and at s = 512 the images part by 5.3e-5 (at s = 20 by < 1e-6). Without
+# FMAs the port is within 3e-7 at s = 300 and 512.
+_CONFIG_SCRIPT = """
+import sys
+import dataclasses
+import numpy as np
+import jax
+jax.config.update("jax_platforms", "cpu")
+import jax.numpy as jnp
+import test_torch_augment as t
+from tfssd_tpu.data import augment as ja
+s, out = int(sys.argv[1]), sys.argv[2]
+img, boxes, labels, keys = t._config_batch(s)
+want = jax.jit(jax.vmap(ja.augment_image))(
+    keys, jnp.asarray(img), jnp.asarray(boxes), jnp.asarray(labels))
+draws = dataclasses.asdict(t._jax_draws(keys, ja.NUM_TRIALS))
+np.savez(out, image=np.asarray(want[0]), boxes=np.asarray(want[1]),
+         labels=np.asarray(want[2]),
+         **{"draw_" + k: v.numpy() for k, v in draws.items()})
+"""
+
+
+@pytest.mark.parametrize("s", [300, 512])
+def test_augment_with_jax_draws_matches_at_the_configs_sizes(s, tmp_path):
+    # SSD300's and SSD512's own image sizes: the resample is one matmul
+    # pair per image, summed over s rows and s columns.
+    out = tmp_path / "augment.npz"
+    here = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, JAX_PLATFORMS="cpu",
+               PYTHONPATH=os.pathsep.join([os.path.dirname(here), here]),
+               XLA_FLAGS="--xla_cpu_max_isa=AVX")
+    subprocess.run([sys.executable, "-c", _CONFIG_SCRIPT, str(s), str(out)],
+                   env=env, check=True, timeout=600)
+    with np.load(out) as f:
+        want = {k: f[k] for k in f.files}
+    draws = ta.AugmentDraws(**{
+        k[len("draw_"):]: torch.from_numpy(v) for k, v in want.items()
+        if k.startswith("draw_")})
+    img, boxes, labels, _ = _config_batch(s)
+    got = ta.apply_draws(torch.from_numpy(img), torch.from_numpy(boxes),
+                         torch.from_numpy(labels), draws)
+    assert got[0].shape == (2, s, s, 3)
+    np.testing.assert_array_equal(got[2].numpy(), want["labels"])
+    np.testing.assert_allclose(got[1].numpy(), want["boxes"], atol=1e-6)
+    np.testing.assert_allclose(got[0].numpy(), want["image"],
+                               atol=IMG_ATOL)
 
 
 def test_augment_with_jax_draws_matches_augment_image():

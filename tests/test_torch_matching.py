@@ -54,9 +54,10 @@ def _assert_same(got, want):
                                atol=ATOL)
 
 
-@pytest.mark.parametrize("backbone", ["mobilenet_v2", "vgg16"])
+@pytest.mark.parametrize("backbone", ["mobilenet_v2", "vgg16", "vgg16_512"])
 def test_plain_matcher_matches_jax_and_pallas(backbone):
-    # vgg16's 8,732 anchors are not a multiple of the Pallas 512 tile
+    # vgg16's 8,732 and vgg16_512's 24,564 anchors are not multiples of
+    # the Pallas 512 tile
     kw = dict(max_gt_boxes=16)
     jcfg, tcfg = j_hyper(backbone, **kw), t_hyper(backbone, **kw)
     anchors = generate_anchors(jcfg)

@@ -70,17 +70,13 @@ from tfssd_tpu import train as jtrain  # noqa: E402
 from tfssd_tpu.data import SyntheticDataset, batch_examples  # noqa: E402
 from tfssd_tpu.models import get_model as j_get_model  # noqa: E402
 from tfssd_tpu.models import layers as jlayers  # noqa: E402
-from tfssd_tpu.ops.boxes import generate_anchors  # noqa: E402
-from tfssd_tpu.ops.losses import ssd_losses as j_ssd_losses  # noqa: E402
-from tfssd_tpu.ops.matching import match_batch as j_match_batch  # noqa: E402
+from test_torch_train_parity import (LR, adam_state, distance,  # noqa: E402
+                                     eval_metrics, jax_reference, jax_step,
+                                     np_tree, port_state, port_step, sd,
+                                     seeded_moments)
 
 TINY = dict(img_size=96, feature_map_shapes=(6, 3, 2, 1, 1, 1),
             total_labels=6, max_gt_boxes=8, bn_momentum=0.8)
-LR = 1e-3
-
-
-def _np(tree):
-    return jax.tree_util.tree_map(np.asarray, tree)
 
 
 @pytest.mark.parametrize("shape", [(32, 1, 1, 8), (4, 5, 5, 8)])
@@ -93,10 +89,10 @@ def test_batchnorm_running_stats_match_flax(shape):
     variables = jmod.init(jax.random.key(0), jnp.asarray(x))
     want, upd = jmod.apply(variables, jnp.asarray(x), train=True,
                            mutable=["batch_stats"])
-    stats = _np(upd["batch_stats"]["bn"])
+    stats = np_tree(upd["batch_stats"]["bn"])
 
     tmod = tlayers.ConvBN(8, 8, 1, bn_momentum=0.8)
-    convert.load_variables(tmod, _np(variables))
+    convert.load_variables(tmod, np_tree(variables))
     tmod.train()
     got = tmod(torch.from_numpy(x).permute(0, 3, 1, 2))
     np.testing.assert_allclose(tmod.bn.running_mean.numpy(), stats["mean"],
@@ -138,162 +134,33 @@ def tiny():
     jcfg, tcfg = j_hyper("mobilenet_v2", **TINY), t_hyper("mobilenet_v2",
                                                           **TINY)
     model = j_get_model(jcfg)
-    anchors = generate_anchors(jcfg)
     opt = jtrain.make_optimizer(LR)
     state = jtrain.create_train_state(model, jax.random.key(0), opt)
-    rng = np.random.default_rng(0)
-    mu = jax.tree_util.tree_map(
-        lambda p: rng.normal(0, 0.05, p.shape).astype(np.float32),
-        _np(state.params))
-    nu = jax.tree_util.tree_map(
-        lambda p: rng.uniform(1e-3, 1e-2, p.shape).astype(np.float32),
-        _np(state.params))
-    adam = state.opt_state[0]._replace(
-        count=jnp.asarray(3, jnp.int32),
-        mu=jax.tree_util.tree_map(jnp.asarray, mu),
-        nu=jax.tree_util.tree_map(jnp.asarray, nu))
-    opt_state = (adam,) + tuple(state.opt_state[1:])
+    mu, nu = seeded_moments(np_tree(state.params))
     ds = SyntheticDataset(num_examples=4, image_size=96, max_objects=2,
                           seed=7, num_classes=5)
     batch = next(batch_examples(ds, 4, jcfg.max_gt_boxes))
     batch = {k: batch[k] for k in ("image", "boxes", "labels")}
-    jb = {k: jnp.asarray(v) for k, v in batch.items()}
-
-    # the JAX train step's loss_fn and update, for augment=False
-    def loss_fn(params):
-        images = jb["image"].astype(jnp.float32) / 255.0 * 2.0 - 1.0
-        deltas, labels = j_match_batch(jnp.asarray(anchors), jb["boxes"],
-                                       jb["labels"], jcfg)
-        (pd, pl), upd = model.apply(
-            {"params": params, "batch_stats": state.batch_stats}, images,
-            train=True, mutable=["batch_stats"])
-        total, metrics = j_ssd_losses(deltas, labels, pd, pl,
-                                      jcfg.neg_pos_ratio,
-                                      jcfg.loc_loss_alpha)
-        return total, (metrics, upd["batch_stats"])
-
-    eval_step = jtrain.make_eval_step(model, anchors)
-
-    @jax.jit  # one compile for the train step's parts and the eval step
-    def step(params, opt_state):
-        (_, (metrics, stats)), grads = jax.value_and_grad(
-            loss_fn, has_aux=True)(params)
-        updates, new_opt = opt.update(grads, opt_state, params)
-        return (metrics, grads, optax.apply_updates(params, updates), stats,
-                optax.global_norm(grads), eval_step(state, jb), new_opt[0])
-
-    metrics, grads, new_params, stats, gnorm, eval_metrics, adam = step(
-        state.params, opt_state)
-    return dict(tcfg=tcfg, anchors=anchors, state=state, mu=mu, nu=nu,
-                batch=batch,
-                metrics={k: float(v) for k, v in metrics.items()},
-                grads=_np(grads), params=_np(new_params), stats=_np(stats),
-                new_mu=_np(adam.mu), new_nu=_np(adam.nu),
-                grad_norm=float(gnorm),
-                eval_metrics={k: float(v) for k, v in eval_metrics.items()})
-
-
-def _port_state(t, mu=None, nu=None, count=3, schedule=lambda c: LR,
-                dtype=torch.float32):
-    model = t_get_model(t["tcfg"]).to(dtype)
-    opt = ttrain.make_optimizer(model, LR)
-    convert.load_train_state(
-        model, opt, {"params": _np(t["state"].params),
-                     "batch_stats": _np(t["state"].batch_stats)},
-        t["mu"] if mu is None else mu, t["nu"] if nu is None else nu, count)
-    return ttrain.TrainState(count, model, opt, schedule)
-
-
-def _rel(a, b):
-    return float((a - b).norm() / b.norm())
-
-
-def _sd(tree):
-    """A params-shaped numpy tree as the port's state-dict tensors."""
-    return convert.variables_to_state_dict({"params": tree})
-
-
-def _flat(d, names):
-    return torch.cat([d[n].reshape(-1).double() for n in names])
-
-
-def _adam_state(state, key):
-    params = dict(state.model.named_parameters())
-    return {n: state.optimizer.state[p][key] for n, p in params.items()}
-
-
-def _port_step(t, dtype):
-    """The port's train step (augmentation off) from the converted JAX
-    state with the model, Adam and the images in `dtype` (the images
-    scaled by /255 in float32 first, as the step does): its metrics,
-    gradients, update (new minus old parameters), Adam's moments and
-    running statistics after the step."""
-    state = _port_state(t, dtype=dtype)
-    step = ttrain.make_train_step(torch.from_numpy(t["anchors"]), t["tcfg"],
-                                  augment=False)
-    batch = {k: torch.from_numpy(v) for k, v in t["batch"].items()}
-    batch["image"] = (batch["image"].float() / 255.0).to(dtype)
-    params = dict(state.model.named_parameters())
-    before = {n: q.detach().clone() for n, q in params.items()}
-    metrics = step(state, batch)
-    assert state.step == 4
-    return dict(
-        metrics={k: float(v) for k, v in metrics.items()},
-        grads={n: q.grad for n, q in params.items()},
-        update={n: q.detach() - before[n] for n, q in params.items()},
-        mu=_adam_state(state, "exp_avg"), nu=_adam_state(state, "exp_avg_sq"),
-        stats={k: v for k, v in state.model.state_dict().items()
-               if "running_" in k})
+    return jax_reference(jcfg, tcfg, state, batch, mu, nu)
 
 
 @pytest.fixture(scope="module")
 def port_steps(tiny):
-    return {dtype: _port_step(tiny, dtype)
+    return {dtype: port_step(tiny, dtype)
             for dtype in (torch.float64, torch.float32)}
-
-
-def _jax_step(t):
-    """The JAX step's results in _port_step's form."""
-    old, new = _sd(_np(t["state"].params)), _sd(t["params"])
-    stats = convert.variables_to_state_dict({"batch_stats": t["stats"]})
-    return dict(metrics=dict(t["metrics"], grad_norm=t["grad_norm"]),
-                grads=_sd(t["grads"]),
-                update={n: new[n] - old[n] for n in old},
-                mu=_sd(t["new_mu"]), nu=_sd(t["new_nu"]),
-                stats={k: v for k, v in stats.items() if "running_" in k})
-
-
-def _distance(got, want):
-    """Relative distances of one step's results from another's: losses and
-    grad_norm, the head's and the whole gradient and update in relative
-    norm, the update's largest element error in units of lr, the moments
-    in relative norm."""
-    names = sorted(want["grads"])
-    head = [n for n in names if n.startswith("head.")]
-    d = {k: abs(got["metrics"][k] / want["metrics"][k] - 1)
-         for k in ("loss", "loc_loss", "conf_loss", "grad_norm")}
-    for key in ("grads", "update", "mu", "nu"):
-        d[key] = _rel(_flat(got[key], names), _flat(want[key], names))
-    d["grads_head"] = _rel(_flat(got["grads"], head),
-                           _flat(want["grads"], head))
-    d["update_head_lr"], d["update_lr"] = (
-        max(float((got["update"][n].double()
-                   - want["update"][n].double()).abs().max())
-            for n in group) / LR for group in (head, names))
-    return d
 
 
 def test_train_step_from_a_converted_jax_state_matches_jax(tiny, port_steps):
     # the converter carried Adam's moments across, transposed like kernels
-    state = _port_state(tiny)
+    state = port_state(tiny)
     name = "backbone.stem.conv.weight"
     p = dict(state.model.named_parameters())[name]
     assert torch.equal(state.optimizer.state[p]["exp_avg"],
-                       _sd(tiny["mu"])[name])
+                       sd(tiny["mu"])[name])
 
-    got, want = port_steps[torch.float64], _jax_step(tiny)
+    got, want = port_steps[torch.float64], jax_step(tiny)
     assert got["metrics"]["num_pos"] == want["metrics"]["num_pos"] > 0
-    d = _distance(got, want)
+    d = distance(got, want)
     gates = {"loss": 1e-4, "loc_loss": 1e-4, "conf_loss": 1e-4,
              "grad_norm": 1e-3, "grads_head": 1e-3, "grads": 5e-2,
              "update_head_lr": 1e-3, "update_lr": 0.25, "update": 1e-2,
@@ -309,7 +176,7 @@ def test_train_step_in_float32_is_the_float64_step_rounded(port_steps):
     # nothing but rounding, at any thread count.
     got, want = port_steps[torch.float32], port_steps[torch.float64]
     assert got["metrics"]["num_pos"] == want["metrics"]["num_pos"]
-    d = _distance(got, want)
+    d = distance(got, want)
     gates = {"loss": 1e-3, "loc_loss": 1e-3, "conf_loss": 1e-3,
              "grad_norm": 2e-2, "grads_head": 2e-3, "grads": 1.5e-1,
              "update_head_lr": 1e-3, "update_lr": 0.6, "update": 3e-2,
@@ -328,7 +195,7 @@ def test_adam_update_equals_optax_given_the_same_gradients(tiny, count):
     # optax's update. nu spans 1e-20..1e-2, so eps decides some elements;
     # at count 80 (one step per epoch) the rate has decayed to 1e-4.
     rng = np.random.default_rng(1)
-    params = _np(tiny["state"].params)
+    params = np_tree(tiny["state"].params)
     mu = jax.tree_util.tree_map(
         lambda p: rng.normal(0, 0.05, p.shape).astype(np.float32), params)
     nu = jax.tree_util.tree_map(
@@ -343,10 +210,10 @@ def test_adam_update_equals_optax_given_the_same_gradients(tiny, count):
                  sched._replace(count=jnp.asarray(count, jnp.int32)))
     updates, new_opt = opt.update(
         jax.tree_util.tree_map(jnp.asarray, tiny["grads"]), opt_state)
-    want_u = _sd(_np(updates))
+    want_u = sd(np_tree(updates))
 
-    state = _port_state(tiny, mu, nu, count, ttrain.make_lr_schedule(1))
-    grads = _sd(tiny["grads"])
+    state = port_state(tiny, mu, nu, count, ttrain.make_lr_schedule(1))
+    grads = sd(tiny["grads"])
     named = dict(state.model.named_parameters())
     before = {n: q.detach().clone() for n, q in named.items()}
     for n, q in named.items():
@@ -365,9 +232,9 @@ def test_adam_update_equals_optax_given_the_same_gradients(tiny, count):
              "exp_avg_sq": (nu, 0.999, lambda g: 1e-3 * g * g)}
     for key, want in (("exp_avg", new_opt[0].mu),
                       ("exp_avg_sq", new_opt[0].nu)):
-        got, want = _adam_state(state, key), _sd(_np(want))
+        got, want = adam_state(state, key), sd(np_tree(want))
         old_m, b, term = terms[key]
-        old_m = _sd(old_m)
+        old_m = sd(old_m)
         for n in named:
             w, g = want[n].numpy(), grads[n].numpy()
             scale = np.maximum(b * np.abs(old_m[n].numpy()),
@@ -378,22 +245,13 @@ def test_adam_update_equals_optax_given_the_same_gradients(tiny, count):
 
 
 def test_eval_step_matches_jax(tiny):
-    state = _port_state(tiny)
+    got, multi = eval_metrics(tiny)
     want = tiny["eval_metrics"]
-    batch = {k: torch.from_numpy(v) for k, v in tiny["batch"].items()}
-    got = ttrain.make_eval_step(torch.from_numpy(tiny["anchors"]),
-                                tiny["tcfg"])(state, batch)
     for k in ("loss", "loc_loss", "conf_loss", "num_pos"):
-        np.testing.assert_allclose(float(got[k]), want[k], rtol=1e-5,
-                                   err_msg=k)
+        np.testing.assert_allclose(got[k], want[k], rtol=1e-5, err_msg=k)
     # the cached multi-batch form: one row per batch, the same metrics
-    data = {k: torch.cat([v, v]) for k, v in batch.items()}
-    idx = torch.arange(8).reshape(2, 4)
-    multi = ttrain.make_cached_multi_eval_step(
-        torch.from_numpy(tiny["anchors"]), tiny["tcfg"])(state, data, idx)
-    assert multi["loss"].shape == (2,)
-    np.testing.assert_allclose(multi["loss"].numpy(), float(got["loss"]),
-                               rtol=1e-6)
+    assert multi.shape == (2,)
+    np.testing.assert_allclose(multi.numpy(), got["loss"], rtol=1e-6)
 
 
 def test_trainer_cpu_run_saves_resumes_and_keeps_the_3_best(tmp_path):

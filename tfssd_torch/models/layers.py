@@ -149,8 +149,9 @@ class InvertedResidual(nn.Module):
 class L2Norm(nn.Module):
     """Channelwise L2 normalisation with a learned per-channel scale
     (conv4_3 of VGG16-SSD): x / sqrt(sum_c x^2 + 1e-10) * gamma, in
-    float32. Not F.normalize, which divides by max(|x|, eps). gamma starts
-    at `scale_init` (20)."""
+    float32, or in float64 for a float64 input (the float64 witness of a
+    train step). Not F.normalize, which divides by max(|x|, eps). gamma
+    starts at `scale_init` (20)."""
 
     def __init__(self, channels: int, scale_init: float = 20.0):
         super().__init__()
@@ -163,7 +164,7 @@ class L2Norm(nn.Module):
             self.gamma.fill_(self.scale_init)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        xf = x.float()
+        xf = x.to(torch.promote_types(x.dtype, torch.float32))
         norm = torch.sqrt((xf * xf).sum(dim=1, keepdim=True) + 1e-10)
         return (xf / norm * self.gamma[:, None, None]).to(x.dtype)
 

@@ -40,6 +40,7 @@ from tfssd_torch.ops.boxes import generate_anchors
 from tfssd_torch.ops.nms import NMSResult
 from tfssd_torch.utils.convert import is_folded, load_variables
 from tfssd_torch.utils.fold_bn import fold_for_serving
+from tfssd_torch.utils.io import VALID_BACKBONES
 
 VOC_CLASSES = (
     "aeroplane", "bicycle", "bird", "boat", "bottle", "bus", "car", "cat",
@@ -47,8 +48,6 @@ VOC_CLASSES = (
     "pottedplant", "sheep", "sofa", "train", "tvmonitor",
 )
 LABELS = ("bg",) + VOC_CLASSES
-
-BACKBONES = ("mobilenet_v2", "vgg16", "vgg16_512")
 
 # The evaluation split the JAX predictor serves for --dataset synthetic.
 SYNTHETIC_EVAL_SIZE = 128
@@ -136,7 +135,8 @@ def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="python -m tfssd_torch.predict",
         description="tfssd_torch predictor (PyTorch/CUDA serving path)")
-    p.add_argument("--backbone", default="mobilenet_v2", choices=BACKBONES,
+    p.add_argument("--backbone", default="mobilenet_v2",
+                   choices=VALID_BACKBONES,
                    help="SSD300-MobileNetV2, SSD300-VGG16 or SSD512-VGG16")
     p.add_argument("--dataset", default="synthetic", choices=("synthetic",))
     p.add_argument("--limit", type=int, default=None)

@@ -13,8 +13,9 @@ kernels' device time in the window) and the idle share, the device time by
 kind of kernel, the heaviest kernels, the NMS keep kernel's device time
 per launch, and from a second, shorter window that records shapes (so
 that its overhead stays out of the first) the convolutions by input and
-weight shape with their device time. Needs a card: where the profiler
-records no device time it says "not measured".
+weight shape with their device time and the kernels cuDNN ran for each.
+Needs a card: where the profiler records no device time it says "not
+measured".
 """
 
 from __future__ import annotations
@@ -22,7 +23,7 @@ from __future__ import annotations
 import argparse
 import time
 from collections import defaultdict
-from typing import Optional, Sequence
+from typing import List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -31,6 +32,7 @@ from torch.profiler import ProfilerActivity, profile
 from tfssd_torch import predict
 from tfssd_torch.data.synthetic import SyntheticDataset
 from tfssd_torch.models.decoder import make_predict_fn
+from tfssd_torch.utils.io import VALID_BACKBONES
 
 # Batches in the shape-recording window.
 _SHAPE_ITERS = 2
@@ -61,10 +63,41 @@ def kind_of(name: str) -> str:
     return "elementwise / other"
 
 
+def conv_shapes(prof, iters: int, per: str, top: int = 8) -> List[str]:
+    """The `top` convolutions of a window that recorded shapes, by device
+    time: one line per pass (forward, or the backward's data and weight
+    gradients) and input x weight shape, with the kernels cuDNN ran for it
+    (the algorithm it picked) and each kernel's share."""
+    rows = defaultdict(lambda: defaultdict(float))
+    for evt in prof.events():
+        if evt.name == "aten::convolution":
+            key = ("forward", str(evt.input_shapes[:2]))
+        elif evt.name == "aten::convolution_backward":
+            key = ("backward", str(evt.input_shapes[1:3]))
+        else:
+            continue
+        stack = [evt]
+        while stack:
+            e = stack.pop()
+            for k in e.kernels:
+                rows[key][k.name] += k.duration / iters
+            stack.extend(e.cpu_children)
+    ranked = sorted(rows.items(), key=lambda kv: -sum(kv[1].values()))
+    lines = []
+    for (kind, shapes), kernels in ranked[:top]:
+        us = sum(kernels.values())
+        names = "; ".join(
+            f"{name[:90]} {t / us:.2f}" for name, t in
+            sorted(kernels.items(), key=lambda kv: -kv[1])[:3])
+        lines.append(f"conv {kind} {us:9.1f} us/{per} input x weight "
+                     f"{shapes}: {names}")
+    return lines
+
+
 def main(argv: Optional[Sequence[str]] = None) -> None:
     p = argparse.ArgumentParser(prog="python -m tfssd_torch.profile_serving")
     p.add_argument("--backbone", default="mobilenet_v2",
-                   choices=predict.BACKBONES)
+                   choices=VALID_BACKBONES)
     p.add_argument("--batch-size", type=int, default=64)
     p.add_argument("--iters", type=int, default=10)
     p.add_argument("--seed", type=int, default=0)
@@ -138,11 +171,8 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
         for _ in range(_SHAPE_ITERS):
             predict_fn(x)
         sync()
-    convs = [(evt.device_time_total / _SHAPE_ITERS, evt.input_shapes[:2])
-             for evt in prof.key_averages(group_by_input_shape=True)
-             if evt.key == "aten::convolution"]
-    for us, shapes in sorted(convs, reverse=True)[:8]:
-        print(f"profile: conv {us:9.1f} us/batch input x weight {shapes}")
+    for line in conv_shapes(prof, _SHAPE_ITERS, "batch"):
+        print(f"profile: {line}")
 
 
 if __name__ == "__main__":

@@ -1,15 +1,21 @@
-"""Where the training time goes on the card: one torch.profiler window.
+"""Where the training time goes on the card: two torch.profiler windows.
 
-    python -m tfssd_torch.profile_train [--batch-size 32] [--iters 5]
+    python -m tfssd_torch.profile_train [--backbone vgg16] \
+        [--batch-size 32] [--iters 5]
 
 Runs the trainer's step (device-resident uint8 SyntheticDataset(seed=0)
 rows -> augment -> match/encode kernel -> forward -> loss -> backward ->
-Adam) on SSD300-MobileNetV2 at full width with seeded weights, and prints
-per step: the wall time (host clock around synchronised work), the device
-busy time (the sum of the CUDA kernels' device time in the window) and the
-idle share, the device time by kind of kernel, the heaviest kernels, and
-the match/encode kernel's device time per launch. Needs a card: where the
-profiler records no device time it says "not measured".
+Adam) on a configuration at full width with seeded weights
+(SSD300-MobileNetV2 unless --backbone says otherwise: vgg16 is
+SSD300-VGG16, vgg16_512 SSD512-VGG16), and prints per step: the wall time
+(host clock around synchronised work), the device busy time (the sum of
+the CUDA kernels' device time in the window) and the idle share, the
+device time by kind of kernel, the heaviest kernels, the match/encode
+kernel's device time per launch and the peak device memory; then, from a
+second, shorter window that records shapes (so that its overhead stays
+out of the first), the convolutions' forward and backward passes by input
+and weight shape with the kernels cuDNN ran for each. Needs a card: where
+the profiler records no device time it says "not measured".
 """
 
 from __future__ import annotations
@@ -26,10 +32,14 @@ from tfssd_torch import get_hyper_params, resolve_device
 from tfssd_torch.data.loader import stage_arrays
 from tfssd_torch.data.synthetic import SyntheticDataset
 from tfssd_torch.ops.boxes import generate_anchors
-from tfssd_torch.profile_serving import kind_of
+from tfssd_torch.profile_serving import conv_shapes, kind_of
 from tfssd_torch.train import (create_train_state, make_cached_train_step,
                                make_lr_schedule)
 from tfssd_torch.trainer import epoch_indices
+from tfssd_torch.utils.io import VALID_BACKBONES
+
+# Steps in the shape-recording window.
+_SHAPE_ITERS = 2
 
 # Kernel-name fragments of the training step -> kind, before the serving
 # kinds (profile_serving.kind_of).
@@ -41,12 +51,20 @@ _TRAIN_KINDS = (
     ("adam", "Adam (foreach)"),
     ("Adam", "Adam (foreach)"),
     ("multi_tensor", "Adam (foreach)"),
-    # cuDNN's convolutions are implicit GEMMs ("..._implicit_gemm_...");
-    # a plain GEMM in the step is the augmentation's resample
-    ("xmma_gemm", "augment resample (matmul)"),
-    ("gemv", "augment resample (matmul)"),
     ("reduce", "reductions (losses, norms, stats)"),
 )
+
+
+# Ops whose kernels take the op's kind, whatever their names: cuDNN runs
+# some convolutions as FFTs and GEMMs, which would read as a matmul by
+# name, and the augmentation's resample is the step's only matmul.
+_OP_KINDS = {
+    "aten::convolution": "convolution (cuDNN)",
+    "aten::convolution_backward": "convolution (cuDNN)",
+    "aten::matmul": "augment resample (matmul)",
+    "aten::mm": "augment resample (matmul)",
+    "aten::bmm": "augment resample (matmul)",
+}
 
 
 def train_kind(name: str) -> str:
@@ -56,8 +74,34 @@ def train_kind(name: str) -> str:
     return kind_of(name)
 
 
+def device_us_by_kind(prof, iters: int, kernels) -> dict:
+    """Device us per step by kind: a kernel launched under an op of
+    _OP_KINDS takes the nearest such op's kind; every other kernel, and
+    the time of `kernels` ((us per step, calls, name) of the window) that
+    no op launched (the hand-written kernels, launched through ctypes),
+    goes by its name (train_kind)."""
+    by_kind, linked = defaultdict(float), defaultdict(float)
+    for evt in prof.events():
+        if evt.device_type != torch.autograd.DeviceType.CPU:
+            continue
+        op = evt
+        while op is not None and op.name not in _OP_KINDS:
+            op = op.cpu_parent
+        for k in evt.kernels:
+            kind = _OP_KINDS[op.name] if op is not None else train_kind(
+                k.name)
+            by_kind[kind] += k.duration / iters
+            linked[k.name] += k.duration / iters
+    for us, _, name in kernels:
+        if us > linked[name]:
+            by_kind[train_kind(name)] += us - linked[name]
+    return by_kind
+
+
 def main(argv: Optional[Sequence[str]] = None) -> None:
     p = argparse.ArgumentParser(prog="python -m tfssd_torch.profile_train")
+    p.add_argument("--backbone", default="mobilenet_v2",
+                   choices=VALID_BACKBONES)
     p.add_argument("--batch-size", type=int, default=32)
     p.add_argument("--iters", type=int, default=5)
     p.add_argument("--seed", type=int, default=0)
@@ -65,7 +109,7 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     args = p.parse_args(argv)
 
     device = resolve_device(args.device)
-    cfg = get_hyper_params("mobilenet_v2")
+    cfg = get_hyper_params(args.backbone)
     host, n = stage_arrays(
         SyntheticDataset(4 * args.batch_size, image_size=cfg.img_size,
                          seed=0), cfg.max_gt_boxes)
@@ -75,7 +119,7 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     anchors = torch.from_numpy(generate_anchors(cfg)).to(device)
     step = make_cached_train_step(anchors, cfg, augment=True,
                                   seed=args.seed)
-    steps = 3 + args.iters
+    steps = 3 + args.iters + _SHAPE_ITERS
     rows = torch.from_numpy(epoch_indices(
         args.seed, 0, n, steps, args.batch_size)).to(device)
     sync = (torch.cuda.synchronize if device.type == "cuda"
@@ -89,12 +133,11 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
         activities.append(ProfilerActivity.CUDA)
     with profile(activities=activities) as prof:
         t0 = time.perf_counter()
-        for i in range(3, steps):
+        for i in range(3, 3 + args.iters):
             step(state, data, rows[i])
         sync()
         wall_ms = (time.perf_counter() - t0) * 1e3 / args.iters
 
-    by_kind = defaultdict(float)
     kernels = []
     for evt in prof.key_averages():
         # a user annotation (Optimizer.step#..., record_function) spans
@@ -106,14 +149,15 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
         if us <= 0:
             continue
         kernels.append((us, evt.count / args.iters, evt.key))
-        by_kind[train_kind(evt.key)] += us
     name = (torch.cuda.get_device_name(device) if device.type == "cuda"
             else "cpu")
-    print(f"profile: train step, batch {args.batch_size}, {args.iters} "
-          f"steps, device={name}")
+    print(f"profile: {args.backbone} train step, batch {args.batch_size}, "
+          f"{args.iters} steps, cudnn.benchmark="
+          f"{torch.backends.cudnn.benchmark}, device={name}")
     print(f"profile: wall {wall_ms:.3f} ms per step "
           f"({args.batch_size * 1e3 / wall_ms:.1f} img/s, profiler on)")
-    busy_ms = sum(by_kind.values()) / 1e3
+    busy_ms = sum(us for us, _, _ in kernels) / 1e3
+    by_kind = device_us_by_kind(prof, args.iters, kernels)
     if busy_ms == 0:
         print("profile: device time not measured (the profiler recorded no "
               "CUDA kernel)")
@@ -134,6 +178,16 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
         print(f"profile: match_encode device time {us / calls:.2f} us per "
               f"launch at B={args.batch_size}, N={cfg.total_anchors}, "
               f"G={cfg.max_gt_boxes}")
+    print(f"profile: peak device memory "
+          f"{torch.cuda.max_memory_allocated(device) / 2**30:.2f} GiB "
+          f"(max_memory_allocated: staged data, model, Adam and a step)")
+
+    with profile(activities=activities, record_shapes=True) as prof:
+        for i in range(3 + args.iters, steps):
+            step(state, data, rows[i])
+        sync()
+    for line in conv_shapes(prof, _SHAPE_ITERS, "step", top=12):
+        print(f"profile: {line}")
 
 
 if __name__ == "__main__":

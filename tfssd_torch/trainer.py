@@ -1,13 +1,17 @@
 """Training entry point (port of the repository's trainer.py, its default
 path: the synthetic dataset, staged on the device once).
 
-    python -m tfssd_torch.trainer --dataset synthetic --epochs 2 \\
-        --steps-per-epoch 3 --batch-size 32 [--device cpu] [--resume]
+    python -m tfssd_torch.trainer [--backbone vgg16] --dataset synthetic \\
+        --epochs 2 --steps-per-epoch 3 --batch-size 32 [--device cpu] \\
+        [--resume]
 
-SSD300-MobileNetV2 at full width: 300x300 images, 2,268 anchors, 21
-labels, 64 gt rows per image. Each step gathers its batch on the device,
-augments it there, matches it with the match/encode kernel (CUDA) and
-takes one Adam step; validation runs every --val-every epochs and
+Each of the JAX package's configurations at full width, 21 labels and 64
+gt rows per image: SSD300-MobileNetV2 (--backbone mobilenet_v2, the
+default: 300x300 images, 2,268 anchors), SSD300-VGG16 (vgg16: 300x300,
+8,732 anchors) and SSD512-VGG16 (vgg16_512: 512x512, 24,564 anchors).
+Each step gathers its batch on the device, augments it there, matches it
+with the match/encode kernel (CUDA) and takes one Adam step; validation
+runs every --val-every epochs and
 checkpoints keep the 3 best by validation loss under
 <model-dir>/ssd_<backbone>_torch. It runs on the card unless --device cpu
 is given, and raises when there is no card. It writes only under
@@ -16,8 +20,7 @@ is given, and raises when there is no card. It writes only under
 The index stream is the JAX trainer's: epoch e visits
 np.random.default_rng(seed * 10_000 + e) permutations of the training
 set. Not ported yet (ROADMAP.md): streamed feeding and VOC directories,
---port-h5, --bf16, --remat, --steps-per-call, --profile, and VGG16/SSD512
-training (the port serves them: predict.py --backbone vgg16 / vgg16_512).
+--port-h5, --bf16, --remat, --steps-per-call and --profile.
 """
 
 from __future__ import annotations
@@ -42,7 +45,8 @@ from tfssd_torch.utils.checkpoint import CheckpointManager
 from tfssd_torch.utils.io import get_log_path, get_model_path, handle_args
 from tfssd_torch.utils.metrics import MetricsLogger
 
-_SHORT = {"mobilenet_v2": "mbv2"}
+# The JAX trainer's short names in its e2e metric.
+_SHORT = {"mobilenet_v2": "mbv2", "vgg16": "vgg16", "vgg16_512": "ssd512"}
 
 
 def make_datasets(synthetic_size: int, img_size: int):

@@ -13,10 +13,9 @@ import argparse
 import datetime
 import os
 
-# The trainer's choices. The port serves VGG16 and SSD512 too
-# (predict.py), but trains only MobileNetV2: "vgg16" and "vgg16_512" join
-# here when VGG16 training is ported (ROADMAP.md).
-VALID_BACKBONES = ("mobilenet_v2",)
+# The JAX package's three configurations: SSD300-MobileNetV2,
+# SSD300-VGG16 and SSD512-VGG16. The trainer and the predictor take each.
+VALID_BACKBONES = ("mobilenet_v2", "vgg16", "vgg16_512")
 
 
 def handle_args(description: str = "tfssd_torch") -> argparse.ArgumentParser:
@@ -25,8 +24,8 @@ def handle_args(description: str = "tfssd_torch") -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(description=description)
     p.add_argument("--backbone", default="mobilenet_v2",
                    choices=VALID_BACKBONES,
-                   help="which SSD backbone to train (only MobileNetV2 "
-                        "trains in the port so far)")
+                   help="which SSD configuration: mobilenet_v2 "
+                        "(SSD300), vgg16 (SSD300) or vgg16_512 (SSD512)")
     p.add_argument("--batch-size", type=int, default=32)
     p.add_argument("--dataset", default="synthetic", choices=("synthetic",),
                    help="VOC directories are not ported yet")

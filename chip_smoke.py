@@ -65,8 +65,11 @@ Phases, in order; any failure ends the run with a non-zero exit:
               (augmentation on, device-resident data); each kernel's and
               its plain version's ms per call (nms_keep at R = 160 and
               R = 1280 and on each VGG16 config's R = 160, match_encode at
-              B = 32, G = 64 and N = 2,268, 8,732 and 24,564) beside its
-              bound; also the device us per launch (CUDA events around
+              B = 32, G = 64 and N = 2,268, 8,732 and 24,564, and on a
+              batch whose 64 rows are all real at N = 24,564) beside its
+              bound (match_encode: the bytes against the real pairs'
+              operations, the padded pairs' figure of earlier runs beside
+              it); also the device us per launch (CUDA events around
               replays of a CUDA graph of 20 wrapper calls: no host work
               between launches) and the host us per call (host clock
               around 200 back-to-back wrapper calls, launches included);
@@ -104,6 +107,8 @@ from tfssd_torch.models.decoder import (decode_boxes_and_scores,
 from tfssd_torch.ops import matching, nms
 from tfssd_torch.ops.boxes import generate_anchors
 from tfssd_torch.ops.kernels import build, match_encode, nms_keep
+from tfssd_torch.ops.kernels.match_encode_cases import (match_cases,
+                                                       random_gts)
 from tfssd_torch.ops.kernels.nms_keep_cases import keep_cases
 from tfssd_torch.profile_nms_keep import host_us
 from tfssd_torch.train import (create_train_state, make_cached_train_step,
@@ -123,7 +128,9 @@ OPS_PER_IOU = 15
 # Operations of one anchor-gt pair in match_encode: 4 max/min, 2
 # subtractions, 2 clamps, a multiply (intersection), an add and a
 # subtract (union), a clamp, a divide, the padding mask, the compare and
-# the argmax update; the encode is O(1) per anchor and left out.
+# the argmax update; the encode is O(1) per anchor and left out. The
+# function needs them for the real gts (label > 0) only; the padded
+# pairs' count is the figure of runs before the bound was recounted.
 OPS_PER_MATCH = 16
 
 PATH_BATCH = 8
@@ -244,15 +251,66 @@ def keep_bound(r: int, k: int):
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
-def match_bound(b: int, n: int, g: int):
-    """(bound_ms, bound_by) of one match_encode call: anchors and gts read
-    once, deltas and labels written once; every anchor-gt pair gets one
-    IoU and compare."""
-    bytes_moved = n * 16 + b * g * (16 + 4) + b * n * (16 + 4)
-    ops = b * n * g * OPS_PER_MATCH
-    t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / F32_FLOP_PER_S * 1e3
-    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+def match_bound(n: int, labels: torch.Tensor) -> dict:
+    """Bounds of one match_encode call on (B, G) `labels` and N anchors:
+    anchors and gts read once, deltas and labels written once, against
+    one IoU and compare for each pair of an anchor and a real gt (what
+    this batch needs); and the figure of earlier runs, which counts every
+    padded pair too."""
+    b, g = labels.shape
+    real = int((labels > 0).sum())
+    t_bytes = (n * 16 + b * g * (16 + 4) + b * n * (16 + 4)) \
+        / HBM_BYTES_PER_S * 1e3
+    t_real = n * real * OPS_PER_MATCH / F32_FLOP_PER_S * 1e3
+    t_padded = b * n * g * OPS_PER_MATCH / F32_FLOP_PER_S * 1e3
+    return dict(
+        bound_ms=max(t_bytes, t_real),
+        bound_by="operations" if t_real > t_bytes else "bytes",
+        bound_ms_padded=max(t_bytes, t_padded),
+        bound_by_padded="operations" if t_padded > t_bytes else "bytes",
+        real_gts=real)
+
+
+def check_match_cases(device) -> None:
+    """The match/encode kernel (with the force-match post-pass where a case
+    asks) against its plain version on the card, on every crafted case:
+    labels bit for bit, deltas within 1e-5."""
+    cases = match_cases(images=TRAIN_BATCH, seed=1)
+    for case in cases:
+        cfg = get_hyper_params(
+            "mobilenet_v2", max_gt_boxes=case.labels.shape[1],
+            iou_threshold=case.iou_threshold,
+            force_match_for_gt=case.force_match)
+        anchors, boxes, labels = (torch.from_numpy(x).to(device) for x in (
+            case.anchors, case.boxes, case.labels))
+        got_d, got_l = match_encode.match_encode(anchors, boxes, labels, cfg)
+        torch.cuda.synchronize()
+        want_d, want_l = matching.match_targets(
+            anchors, boxes, labels, case.iou_threshold, cfg.variances,
+            case.force_match)
+        err = float((got_d - want_d).abs().max())
+        if not torch.equal(got_l, want_l):
+            raise AssertionError(f"match_encode labels differ on crafted "
+                                 f"case {case.name}: "
+                                 f"{int((got_l != want_l).sum())} anchors")
+        if err > 1e-5:
+            raise AssertionError(f"match_encode deltas differ on crafted "
+                                 f"case {case.name}: {err}")
+    print(f"kernel: match_encode crafted cases labels bit-equal, deltas "
+          f"within 1e-5 ({len(cases)} cases, {TRAIN_BATCH} images each): "
+          f"{', '.join(c.name for c in cases)}")
+
+
+def full_g_batch(cfg, device):
+    """A batch of 32 images whose 64 gt rows are all real (seeded boxes of
+    the synthetic data's sizes): the most pairs per anchor for the
+    match/encode kernel -> (anchors, gt_boxes, gt_labels)."""
+    g = cfg.max_gt_boxes
+    boxes, labels = random_gts(np.random.default_rng(SEED), TRAIN_BATCH, g,
+                               g)
+    anchors = torch.from_numpy(generate_anchors(cfg)).to(device)
+    return (anchors, torch.from_numpy(boxes).to(device),
+            torch.from_numpy(labels).to(device))
 
 
 def build_all() -> None:
@@ -479,13 +537,15 @@ def time_match(anchors, boxes, labels, cfg) -> dict:
     plain = time_ms(lambda: matching.match_targets(*args), 20)
     b, g = labels.shape
     n = anchors.shape[0]
-    bound, bound_by = match_bound(b, n, g)
-    print(f"timing: match_encode B={b} N={n} G={g}: kernel {ms:.5f} "
-          f"ms/call, device {dev_us:.2f} us per launch (graph replay), host "
-          f"{h_us:.2f} us per call, plain {plain:.5f} ms/call, bound "
-          f"{bound:.6f} ms ({bound_by})")
+    bound = match_bound(n, labels)
+    print(f"timing: match_encode B={b} N={n} G={g} real gts "
+          f"{bound['real_gts']}: kernel {ms:.5f} ms/call, device "
+          f"{dev_us:.2f} us per launch (graph replay), host {h_us:.2f} us "
+          f"per call, plain {plain:.5f} ms/call, bound "
+          f"{bound['bound_ms']:.6f} ms ({bound['bound_by']}; padded pairs "
+          f"{bound['bound_ms_padded']:.6f} ms, {bound['bound_by_padded']})")
     return dict(ms=ms, device_us=dev_us, host_us=h_us, plain_ms=plain,
-                bound_ms=bound, bound_by=bound_by)
+                **bound)
 
 
 def train_path(backbone: str, batch: int) -> int:
@@ -770,6 +830,7 @@ def main() -> int:
     match_err = max([check_match_encode(cfg, m_anchors, m_boxes, m_labels)]
                     + [check_match_encode(get_hyper_params(name), *batch)
                        for name, batch in vgg_match.items()])
+    check_match_cases(device)
 
     section("3. path")
     run, launches = serving_path("mobilenet_v2", PATH_IMAGES, 2, PATH_BATCH)
@@ -805,6 +866,8 @@ def main() -> int:
     me_row = time_match(m_anchors, m_boxes, m_labels, cfg)
     me_rows = {batch[0].shape[0]: time_match(*batch, get_hyper_params(name))
                for name, batch in vgg_match.items()}
+    ssd512 = get_hyper_params("vgg16_512")
+    full_row = time_match(*full_g_batch(ssd512, device), ssd512)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"],
@@ -816,6 +879,7 @@ def main() -> int:
     r_path = PATH_BATCH * (cfg.total_labels - 1)
     path_row, big_row = rows[r_path], rows[max(rows)]
     timed = ("ms", "device_us", "host_us", "plain_ms", "bound_ms")
+    match_timed = timed + ("bound_ms_padded", "real_gts")
     entry = {
         "name": "nms_keep", "route": "cuda",
         "source": "tfssd_torch/csrc/nms_keep.cu",
@@ -842,7 +906,9 @@ def main() -> int:
         "shape": f"B={b},N={m_anchors.shape[0]},G={g}",
     }
     for n, row in me_rows.items():
-        match_entry.update({f"{key}_N{n}": row[key] for key in timed})
+        match_entry.update({f"{key}_N{n}": row[key] for key in match_timed})
+    match_entry.update({f"{key}_N{ssd512.total_anchors}_full_G": full_row[key]
+                        for key in match_timed})
     for name in VGG_CONFIGS:
         match_entry[f"train_batch_{name}"], match_entry[
             f"launches_{name}"] = trained[name]

@@ -8,7 +8,19 @@ Tolerances: matched labels are equal; deltas within 1e-5, the tolerance
 of the JAX package's own kernel test (tests/test_kernels.py), because the
 encode's log is not correctly rounded on either side and XLA may rewrite a
 division by a variance as a multiplication.
+
+The crafted cases (ops/kernels/match_encode_cases.py) are held the same
+way against both JAX matchers, computed in a subprocess whose XLA may not
+emit FMA instructions (--xla_cpu_max_isa=AVX): XLA:CPU otherwise contracts
+area_a + h * w in the IoU's union into a multiply-add, which rounds once
+where float32 elementwise code (and the kernel, built with -fmad=false)
+rounds twice, and an IoU on the threshold then moves by an ulp.
 """
+
+import os
+import subprocess
+import sys
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -21,6 +33,7 @@ import torch  # noqa: E402
 from tfssd_torch import get_hyper_params as t_hyper  # noqa: E402
 from tfssd_torch.ops import matching as tmatch  # noqa: E402
 from tfssd_torch.ops.kernels import match_encode as tkernel  # noqa: E402
+from tfssd_torch.ops.kernels.match_encode_cases import match_cases  # noqa: E402,E501
 from tfssd_tpu import get_hyper_params as j_hyper  # noqa: E402
 from tfssd_tpu.ops.boxes import generate_anchors  # noqa: E402
 from tfssd_tpu.ops.kernels.match_encode import match_batch_pallas  # noqa: E402
@@ -159,3 +172,155 @@ def test_match_encode_kernel_matches_reference_on_card():
                                     cfg.iou_threshold, cfg.variances)
         assert torch.equal(got[1], want[1]), (backbone, g)
         assert float((got[0] - want[0]).abs().max()) <= ATOL
+
+
+ROOT = Path(__file__).resolve().parents[1]
+CASES = {c.name: c for c in match_cases()}
+VARIANCES = (0.1, 0.1, 0.2, 0.2)
+
+_JAX_SCRIPT = """
+import sys
+import numpy as np
+import jax
+jax.config.update("jax_platforms", "cpu")
+import jax.numpy as jnp
+from tfssd_torch.ops.kernels.match_encode_cases import match_cases
+from tfssd_tpu import get_hyper_params
+from tfssd_tpu.ops.kernels.match_encode import match_encode_pallas
+from tfssd_tpu.ops.matching import match_batch
+out = {}
+for c in match_cases():
+    cfg = get_hyper_params("mobilenet_v2", max_gt_boxes=c.labels.shape[1],
+                           iou_threshold=c.iou_threshold,
+                           force_match_for_gt=c.force_match)
+    args = (jnp.asarray(c.anchors), jnp.asarray(c.boxes),
+            jnp.asarray(c.labels), cfg)
+    d, onehot = match_batch(*args)
+    out[c.name + "/match_batch/deltas"] = np.asarray(d)
+    out[c.name + "/match_batch/labels"] = np.asarray(onehot).argmax(-1)
+    d, lab = match_encode_pallas(*args, interpret=True)
+    out[c.name + "/pallas/deltas"] = np.asarray(d)
+    out[c.name + "/pallas/labels"] = np.asarray(lab)
+np.savez(sys.argv[1], **out)
+"""
+
+
+@pytest.fixture(scope="module")
+def jax_targets(tmp_path_factory):
+    out = tmp_path_factory.mktemp("match") / "targets.npz"
+    env = dict(os.environ, JAX_PLATFORMS="cpu", PYTHONPATH=str(ROOT),
+               XLA_FLAGS="--xla_cpu_max_isa=AVX")
+    subprocess.run([sys.executable, "-c", _JAX_SCRIPT, str(out)], env=env,
+                   check=True, timeout=600)
+    with np.load(out) as f:
+        return {name: f[name] for name in f.files}
+
+
+def _plain_case(case):
+    return tmatch.match_targets(
+        torch.from_numpy(case.anchors), torch.from_numpy(case.boxes),
+        torch.from_numpy(case.labels), case.iou_threshold, VARIANCES,
+        case.force_match)
+
+
+@pytest.mark.parametrize("matcher", ["match_batch", "pallas"])
+@pytest.mark.parametrize("name", sorted(CASES))
+def test_plain_matcher_matches_jax_on_crafted_cases(name, matcher,
+                                                    jax_targets):
+    deltas, labels = _plain_case(CASES[name])
+    np.testing.assert_array_equal(
+        labels.numpy(), jax_targets[f"{name}/{matcher}/labels"])
+    np.testing.assert_allclose(deltas.numpy(),
+                               jax_targets[f"{name}/{matcher}/deltas"],
+                               atol=ATOL)
+
+
+@pytest.mark.parametrize("grid", ["edge_dyadic", "edge_decimal"])
+def test_match_edge_cases_sit_on_the_threshold(grid):
+    """The 'at' case's threshold is the float32 best IoU of many anchors,
+    the 'above' and 'below' thresholds one ulp either side; the labels of
+    'above' and 'at' differ on exactly those anchors."""
+    at = CASES[f"{grid}_at"]
+    t = np.float32(at.iou_threshold)
+    assert np.float32(CASES[f"{grid}_above"].iou_threshold) == np.nextafter(
+        t, np.float32(-np.inf))
+    assert np.float32(CASES[f"{grid}_below"].iou_threshold) == np.nextafter(
+        t, np.float32(np.inf))
+    best = tmatch.masked_iou(*(torch.from_numpy(x) for x in (
+        at.anchors, at.boxes, at.labels))).amax(-1).numpy()
+    assert int((best == t).sum()) >= 20
+    above, on = (_plain_case(CASES[f"{grid}_{side}"])[1].numpy()
+                 for side in ("above", "at"))
+    np.testing.assert_array_equal(above != on, best == t)
+
+
+def test_crafted_cases_reach_their_edges():
+    """Each case holds the situation it is named for."""
+    def parts(name):
+        c = CASES[name]
+        a, b, lab = (torch.from_numpy(x) for x in (c.anchors, c.boxes,
+                                                   c.labels))
+        iou = tmatch.masked_iou(a, b, lab)
+        deltas, labels = _plain_case(c)
+        return c, iou, deltas, labels
+
+    # ties: positive anchors whose maximum is shared by real rows of
+    # different labels, the first row's label winning
+    c, iou, _, labels = parts("ties")
+    best = iou.amax(-1, keepdim=True)
+    shared = ((iou == best) & (best > 0.5)).sum(-1) >= 2
+    assert int(shared.sum()) >= 4
+    first = iou.argmax(-1)
+    assert torch.equal(labels[shared], torch.from_numpy(c.labels).gather(
+        1, first)[shared])
+    # holes: a real row behind a hole of the same box wins its anchors
+    c, iou, _, labels = parts("holes")
+    assert (c.labels[:, 0] == 0).all()
+    assert (c.boxes[:, 0] == c.boxes[:, 1]).all()
+    assert int((labels == torch.from_numpy(c.labels[:, 1:2])).sum()) > 0
+    # a negative threshold: anchors that overlap no real gt take row 0,
+    # a hole with a box (label 0, non-zero deltas) or a degenerate gt (its
+    # label, zero deltas)
+    for name, label_zero in (("holes_negative", True),
+                             ("negative_threshold", False),
+                             ("no_gt_negative", True)):
+        c, iou, deltas, labels = parts(name)
+        none = iou.amax(-1) == 0
+        assert int(none.sum()) > 0, name
+        row0 = torch.from_numpy(c.labels[:, :1]).expand_as(labels)
+        assert torch.equal(labels[none], row0[none]), name
+        moved = deltas.abs().sum(-1) > 0
+        assert bool((moved & none).any()) == label_zero, name
+    for name in ("all_real_g64", "g256", "g1", "n129"):
+        c = CASES[name]
+        assert int((_plain_case(c)[1] > 0).sum()) > 0, name
+    assert (CASES["all_real_g64"].labels > 0).all()
+    assert CASES["g256"].labels.shape[1] == 256
+    assert CASES["g1"].labels.shape[1] == 1
+    assert all(c.anchors.shape[0] % 128 for c in CASES.values())
+    # force-match makes the sliver gt positive
+    c = CASES["force_match"]
+    forced = _plain_case(c)[1]
+    plain = tmatch.match_targets(*(torch.from_numpy(x) for x in (
+        c.anchors, c.boxes, c.labels)), c.iou_threshold, VARIANCES)[1]
+    assert int((forced != plain).sum()) > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(CASES))
+def test_match_encode_kernel_matches_reference_on_crafted_cases_on_card(
+        name):
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the kernel has no CPU mode")
+    case = next(c for c in match_cases(32, 1) if c.name == name)
+    cfg = t_hyper("mobilenet_v2", max_gt_boxes=case.labels.shape[1],
+                  iou_threshold=case.iou_threshold,
+                  force_match_for_gt=case.force_match)
+    a, b, lab = (torch.from_numpy(x).cuda() for x in (
+        case.anchors, case.boxes, case.labels))
+    got = tkernel.match_encode(a, b, lab, cfg)
+    torch.cuda.synchronize()
+    want = tmatch.match_targets(a, b, lab, case.iou_threshold,
+                                cfg.variances, case.force_match)
+    assert torch.equal(got[1], want[1])
+    assert float((got[0] - want[0]).abs().max()) <= ATOL

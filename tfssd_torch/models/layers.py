@@ -82,19 +82,37 @@ class FlaxBatchNorm2d(nn.BatchNorm2d):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training:
             return super().forward(x)
+        n = x.numel() // x.shape[1]
+        if n == 1:
+            return self._single_value(x)
         # F.batch_norm adds momentum * n/(n-1) * biased to the running
         # variance it is given; giving it running_var * n/(n-1) and taking
         # the result back times (n-1)/n leaves Flax's update in the same
         # pass. The scaled copy is a new tensor because autograd saves it
-        # for the backward (n = 1 raises in F.batch_norm).
-        n = x.numel() // x.shape[1]
-        unbias = n / max(n - 1, 1)
+        # for the backward.
+        unbias = n / (n - 1)
         with torch.no_grad():
             var = self.running_var * unbias
         y = F.batch_norm(x, self.running_mean, var, self.weight, self.bias,
                          True, self.momentum, self.eps)
         with torch.no_grad():
             torch.div(var, unbias, out=self.running_var)
+            self.num_batches_tracked.add_(1)
+        return y
+
+    def _single_value(self, x: torch.Tensor) -> torch.Tensor:
+        """Train mode over one value per channel (a 1x1 map at batch 1),
+        where F.batch_norm raises: Flax's formula in plain ops. The mean
+        is the value and the variance 0, so the output is the bias and the
+        gradients are Flax's (none reaches x or the weight)."""
+        mean = x.mean(dim=(0, 2, 3), keepdim=True)
+        var = torch.zeros_like(mean)
+        mul = torch.rsqrt(var + self.eps) * self.weight.view(1, -1, 1, 1)
+        y = (x - mean) * mul + self.bias.view(1, -1, 1, 1)
+        with torch.no_grad():
+            keep = 1.0 - self.momentum
+            self.running_mean.mul_(keep).add_(mean.view(-1) * self.momentum)
+            self.running_var.mul_(keep)
             self.num_batches_tracked.add_(1)
         return y
 

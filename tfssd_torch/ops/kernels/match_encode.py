@@ -9,12 +9,19 @@ train and eval step. Per (image, anchor): IoU against the image's G gts
 iou_threshold, the matched box encoded as centre-form deltas / variances,
 the matched label; negatives zeroed.
 
-Bound on the H100 at B = 32, N = 2,268, G = 64: 4.6 M IoUs of ~16 float32
-operations (1.1 us at 67 TFLOP/s) against 1.5 MB moved (0.46 us at
-3.35 TB/s), so the operations bound it and a launch costs more than
-either. The kernel (csrc/match_encode.cu) runs one thread per (image,
-anchor); each block holds its image's gts in shared memory, so the (B, N, G)
-IoU never reaches device memory.
+What bounds it on the H100: the bytes. An image has a few real gts
+among its G padded rows, so the pairs the function needs take well under a
+microsecond of float operations, while its outputs alone are B*N*20 bytes
+(15.7 MB at B = 32, N = 24,564: 4.7 us at 3.35 TB/s). The kernel
+(csrc/match_encode.cu) runs one thread per (image, anchor); each block
+compacts its image's real gts into shared memory in their original order
+and scans only those, so neither the (B, N, G) IoU nor the padded rows
+cost anything.
+
+The launch path is lean, as nms_keep's: it checks its inputs, allocates
+the outputs, and calls the library with the raw handle of the current
+stream of the tensors' device; the C side switches the current device only
+if it differs. It reads nothing back from the device.
 
 `match_encode` dispatches by device: a CPU tensor goes to the plain
 version (ops/matching.py), a CUDA tensor to the kernel, which raises if it
@@ -49,29 +56,35 @@ def _launch_fn():
 
         fn = load_library("match_encode").match_encode_launch
         fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 3
-                       + [ctypes.c_float] * 5 + [ctypes.c_void_p])
+                       + [ctypes.c_float] * 5 + [ctypes.c_int,
+                                                 ctypes.c_void_p])
         fn.restype = ctypes.c_int
         _FN = fn
     return _FN
 
 
 def _check(anchors: torch.Tensor, gt_boxes: torch.Tensor,
-           gt_labels: torch.Tensor) -> None:
-    if anchors.dim() != 2 or anchors.shape[-1] != 4:
-        raise ValueError(f"anchors must be (N, 4), got {tuple(anchors.shape)}")
-    if gt_boxes.dim() != 3 or gt_boxes.shape[-1] != 4:
-        raise ValueError(
-            f"gt_boxes must be (B, G, 4), got {tuple(gt_boxes.shape)}")
-    if gt_labels.shape != gt_boxes.shape[:2]:
-        raise ValueError(f"gt_labels {tuple(gt_labels.shape)} do not match "
-                         f"gt_boxes {tuple(gt_boxes.shape)}")
+           gt_labels: torch.Tensor) -> torch.device:
+    """Raise unless the inputs are (N, 4) f32, (B, G, 4) f32 and (B, G)
+    int32 on one device; return that device (each attribute is read once:
+    the kernel's wrapper pays for every read in its host time)."""
+    sa, sb, sl = anchors.shape, gt_boxes.shape, gt_labels.shape
+    if len(sa) != 2 or sa[1] != 4:
+        raise ValueError(f"anchors must be (N, 4), got {tuple(sa)}")
+    if len(sb) != 3 or sb[2] != 4:
+        raise ValueError(f"gt_boxes must be (B, G, 4), got {tuple(sb)}")
+    if len(sl) != 2 or sl[0] != sb[0] or sl[1] != sb[1]:
+        raise ValueError(f"gt_labels {tuple(sl)} do not match gt_boxes "
+                         f"{tuple(sb)}")
     if anchors.dtype != torch.float32 or gt_boxes.dtype != torch.float32:
         raise TypeError("anchors and gt_boxes must be float32")
     if gt_labels.dtype != torch.int32:
         raise TypeError("gt_labels must be int32")
-    if not (anchors.device == gt_boxes.device == gt_labels.device):
+    device = anchors.device
+    if gt_boxes.device != device or gt_labels.device != device:
         raise ValueError("anchors, gt_boxes and gt_labels are on different "
                          "devices")
+    return device
 
 
 def match_encode_cuda(anchors: torch.Tensor, gt_boxes: torch.Tensor,
@@ -82,8 +95,8 @@ def match_encode_cuda(anchors: torch.Tensor, gt_boxes: torch.Tensor,
     -> (deltas (B, N, 4) float32, labels (B, N) int32), threshold matching
     only, by the hand-written kernel; G <= 256."""
     global LAUNCHES
-    _check(anchors, gt_boxes, gt_labels)
-    if anchors.device.type != "cuda":
+    device = _check(anchors, gt_boxes, gt_labels)
+    if device.type != "cuda":
         raise ValueError("match_encode_cuda needs CUDA tensors")
     n = anchors.shape[0]
     b, g = gt_labels.shape
@@ -92,21 +105,22 @@ def match_encode_cuda(anchors: torch.Tensor, gt_boxes: torch.Tensor,
     if not (anchors.is_contiguous() and gt_boxes.is_contiguous()
             and gt_labels.is_contiguous()):
         raise ValueError("anchors, gt_boxes and gt_labels must be contiguous")
-    if anchors.data_ptr() % 16 or gt_boxes.data_ptr() % 16:
+    a_ptr, box_ptr = anchors.data_ptr(), gt_boxes.data_ptr()
+    if a_ptr % 16 or box_ptr % 16:
         raise ValueError("anchors and gt_boxes must be 16-byte aligned (the "
                          "kernel reads boxes as float4)")
-    deltas = torch.empty((b, n, 4), dtype=torch.float32,
-                         device=anchors.device)
-    labels = torch.empty((b, n), dtype=torch.int32, device=anchors.device)
+    deltas = anchors.new_empty((b, n, 4))
+    labels = gt_labels.new_empty((b, n))
     if b == 0 or n == 0:
         return deltas, labels
-    fn = _launch_fn()
-    with torch.cuda.device(anchors.device):
-        stream = torch.cuda.current_stream(anchors.device).cuda_stream
-        err = fn(anchors.data_ptr(), gt_boxes.data_ptr(),
-                 gt_labels.data_ptr(), deltas.data_ptr(), labels.data_ptr(),
-                 b, n, g, float(iou_threshold), *map(float, variances),
-                 stream)
+    index = device.index
+    # The raw handle of the device's current stream, as nms_keep_cuda
+    # takes it: no device context and no Stream object per call.
+    stream = torch._C._cuda_getCurrentRawStream(index)
+    err = _launch_fn()(a_ptr, box_ptr, gt_labels.data_ptr(),
+                       deltas.data_ptr(), labels.data_ptr(), b, n, g,
+                       float(iou_threshold), *map(float, variances), index,
+                       stream)
     if err != 0:
         raise RuntimeError(
             f"match_encode kernel launch failed: cudaError {err}")

@@ -27,6 +27,12 @@ Phases, in order; any failure ends the run with a non-zero exit:
               same with force_match_for_gt. The same at SSD300-VGG16's
               N = 8,732 and SSD512's N = 24,564 (B = 32, G = 64, each
               config's own augmented synthetic batch).
+              The keep kernel again on the bfloat16 serving path's
+              candidates of each config (float32 scores from bfloat16
+              logits), bit-equal, with the count of exactly tied scores
+              printed; match/encode's inputs do not depend on the compute
+              dtype, so the batches above are the bfloat16 train paths'
+              too.
   3. path   — serving: `python -m tfssd_torch.predict` (its main()) serves 32
               synthetic images at batch 8 through SSD300-MobileNetV2 at
               full width with seeded weights; the kernel's launch counter is
@@ -58,6 +64,32 @@ Phases, in order; any failure ends the run with a non-zero exit:
               config's STEP_GATES; the same step in TF32 on the card is a
               control that the gates must refuse; the float32 CPU step's
               distance is printed beside them.
+              bfloat16 (SSDConfig.compute_dtype, the JAX benchmark's
+              serving and training dtype): serving through
+              predict.load_model(..., compute_dtype="bfloat16") +
+              predict.serve for each config on the same images as its
+              float32 path (launches == batches), the card's (deltas,
+              logits) held against its float32 ones by BF16_VS_F32 (and
+              at least BF16_MIN_VS_F32 from them), the NMSResult against
+              the CPU plain path fed the card's boxes and scores (as for
+              float32: ties included), and the outputs and detections
+              against the port's bfloat16 CPU path on the same images and
+              weights by BF16_VS_CPU and BF16_AGREEMENT; training through
+              `trainer --bf16` for each config as the float32 paths, and
+              `trainer --bf16 --remat` for SSD512; the one-step parity
+              above also runs the bfloat16 step on the card (and on the
+              CPU, printed) against the same float64 witness, held by
+              BF16_STEP_GATES, and it must fail the float32 gates (it does
+              compute in bfloat16); MobileNetV2's bfloat16 backward, whose
+              whole gradient is rounding noise at random weights, is held
+              stage by stage (each stage fed the step's own inputs and
+              output gradients in a float64 twin) by BF16_LOCAL_GATES.
+              Remat: one bfloat16 step at batch 32
+              of SSD512 and of MobileNetV2 from the same state and batch,
+              plain twice and with remat: equal loss and BatchNorm
+              statistics (every count 1), the gradient within REMAT_GRAD
+              of the plain step's (beside the plain step repeated), the
+              peak device memory of each.
   4. timing — serving img/s at batch 8 and 64 (device-resident uint8
               images -> NMSResult), for each VGG16 config at batch 8 and
               the largest of 64 / 32 that fits; train ms/step, img/s and
@@ -73,10 +105,16 @@ Phases, in order; any failure ends the run with a non-zero exit:
               replays of a CUDA graph of 20 wrapper calls: no host work
               between launches) and the host us per call (host clock
               around 200 back-to-back wrapper calls, launches included);
-              the card's name and power limit.
+              bfloat16 beside float32: serving img/s of each config at
+              batch 8 and 64 (MobileNetV2 also at 256, the JAX
+              benchmark's headline batch), train ms/step and peak memory
+              of each config at its training batch, and SSD512 with
+              remat; the card's name and power limit on every timing
+              line.
   5. the whole run's seconds, the `kernels` JSON line (match_encode's
      launches on each train path and each VGG16 config's train batch
-     among its keys), then the one-line JSON result, last.
+     among its keys; the launches of both kernels on the bfloat16 paths
+     as launches_bf16_<config>), then the one-line JSON result, last.
 
 It exits non-zero without a result when no CUDA device is available, and
 in a directory that holds this script without the tfssd_torch package.
@@ -94,6 +132,7 @@ import sys
 import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
+from typing import Sequence
 
 import numpy as np
 import torch
@@ -102,8 +141,11 @@ from tfssd_torch import get_hyper_params, predict, trainer
 from tfssd_torch.data.augment import augment_batch
 from tfssd_torch.data.loader import stage_arrays
 from tfssd_torch.data.synthetic import SyntheticDataset
+from tfssd_torch.evaluate import detection_agreement
 from tfssd_torch.models.decoder import (decode_boxes_and_scores,
-                                        make_predict_fn, preprocess_images)
+                                        decode_predictions, make_predict_fn,
+                                        preprocess_images)
+from tfssd_torch.models.ssd import get_model, init_random_weights
 from tfssd_torch.ops import matching, nms
 from tfssd_torch.ops.boxes import generate_anchors
 from tfssd_torch.ops.kernels import build, match_encode, nms_keep
@@ -147,6 +189,16 @@ TRAIN_STEPS = 3
 PARITY_BATCH = {"mobilenet_v2": 8, "vgg16": 2, "vgg16_512": 1}
 SEED = 0
 KERNELS = ("nms_keep", "match_encode")
+BF16 = "bfloat16"
+# The JAX benchmark's serving headline batch (MobileNetV2, bfloat16).
+HEADLINE_BATCH = 256
+# The configuration of the remat checks: SSD512 (bfloat16), where remat is
+# the documented fallback when training runs out of device memory, and
+# MobileNetV2 (bfloat16) for its BatchNorm statistics.
+REMAT_CONFIGS = ("vgg16_512", "mobilenet_v2")
+# nvidia-smi's name and power limit of the card, set in main() and printed
+# beside every timing.
+CARD_LINE = ""
 
 
 def section(name: str) -> None:
@@ -373,12 +425,14 @@ def check_match_encode(cfg, anchors, boxes, labels) -> float:
 
 
 def eval_images(cfg, count: int) -> np.ndarray:
-    """The first `count` uint8 images of the predictor's synthetic
-    evaluation split at the config's size."""
+    """`count` uint8 images of the predictor's synthetic evaluation split
+    at the config's size: its first, over again from the start past its
+    128."""
     dataset = SyntheticDataset(predict.SYNTHETIC_EVAL_SIZE,
                                image_size=cfg.img_size,
                                seed=predict.SYNTHETIC_EVAL_SEED)
-    return np.stack([dataset.example(i)["image"] for i in range(count)])
+    return np.stack([dataset.example(i % len(dataset))["image"]
+                     for i in range(count)])
 
 
 def check_keep_on_candidates(model, cfg, images: np.ndarray, label: str):
@@ -395,10 +449,13 @@ def check_keep_on_candidates(model, cfg, images: np.ndarray, label: str):
     err = (got.int() - want.int()).abs().max().item()
     kept = int(got.sum())
     suppressed = int((valid & ~got).sum())
+    # candidates rows are score-sorted: a tie equals its predecessor
+    ties = int(((scores[:, 1:] == scores[:, :-1]) & valid[:, 1:]).sum())
     r, k = scores.shape
     print(f"kernel: nms_keep {label} R={r} K={k} "
           f"bit_equal={torch.equal(got, want)} kept={kept} "
-          f"suppressed={suppressed} invalid={int((~valid).sum())}")
+          f"suppressed={suppressed} invalid={int((~valid).sum())} "
+          f"tied_scores={ties}")
     if not torch.equal(got, want):
         raise AssertionError(f"keep mask differs ({label}, R={r}): "
                              f"{int((got != want).sum())} entries")
@@ -431,7 +488,7 @@ def serving_path(backbone: str, limit: int, checked: int, cpu_images: int):
     if not np.isfinite(run.mean_ap):
         raise AssertionError(f"mAP is not finite ({backbone})")
 
-    cpu_cfg, cpu_model = predict.load_model(backbone, None, SEED, "cpu")
+    _, cpu_model = predict.load_model(backbone, None, SEED, "cpu")
     anchors_t = torch.from_numpy(run.anchors).to(CARD)
     for b in range(checked):
         deltas, logits = run.outputs[b]
@@ -452,30 +509,134 @@ def serving_path(backbone: str, limit: int, checked: int, cpu_images: int):
             if not bool((err <= 1e-3 + 1e-3 * ref.abs()).all()):
                 raise AssertionError(f"{backbone} batch {b} {name} differ: "
                                      f"{worst}")
-        boxes, scores = decode_boxes_and_scores(anchors_t, deltas, logits,
-                                                run.config)
-        want = nms.combined_nms(
-            boxes.cpu(), scores.cpu(),
-            max_detections_per_class=cpu_cfg.max_detections_per_class,
-            max_total_detections=cpu_cfg.max_total_detections,
-            iou_threshold=cpu_cfg.nms_iou_threshold,
-            score_threshold=cpu_cfg.nms_score_threshold,
-            prefilter_anchors=cpu_cfg.nms_prefilter_anchors)
-        got = run.results[b]
-        classes = torch.where(want.classes >= 0, want.classes + 1,
-                              torch.zeros_like(want.classes))
-        if not (torch.equal(got.classes.cpu(), classes)
-                and torch.equal(got.valid.cpu(), want.valid)):
-            raise AssertionError(f"{backbone} batch {b}: classes/valid "
-                                 f"differ")
-        box_err = float((got.boxes.cpu() - want.boxes).abs().max())
-        score_err = float((got.scores.cpu() - want.scores).abs().max())
-        print(f"path: {backbone} batch {b} NMSResult vs CPU plain path: "
-              f"classes and valid equal (valid={got.valid.tolist()}), max "
-              f"box err {box_err:.3g}, max score err {score_err:.3g}")
-        if box_err > 1e-6 or score_err > 1e-6:
-            raise AssertionError(f"{backbone} batch {b}: boxes/scores "
-                                 f"differ")
+        check_nms_on_cpu(f"{backbone} batch {b}", run, b, anchors_t)
+    return run, launches
+
+
+def check_nms_on_cpu(label: str, run, b: int, anchors_t) -> None:
+    """Batch `b`'s NMSResult of a serving run on the card against the CPU
+    plain path fed the card's decoded boxes and scores: classes and valid
+    equal, boxes and scores within 1e-6."""
+    cfg = run.config
+    deltas, logits = run.outputs[b]
+    boxes, scores = decode_boxes_and_scores(anchors_t, deltas, logits, cfg)
+    want = nms.combined_nms(
+        boxes.cpu(), scores.cpu(),
+        max_detections_per_class=cfg.max_detections_per_class,
+        max_total_detections=cfg.max_total_detections,
+        iou_threshold=cfg.nms_iou_threshold,
+        score_threshold=cfg.nms_score_threshold,
+        prefilter_anchors=cfg.nms_prefilter_anchors)
+    got = run.results[b]
+    classes = torch.where(want.classes >= 0, want.classes + 1,
+                          torch.zeros_like(want.classes))
+    if not (torch.equal(got.classes.cpu(), classes)
+            and torch.equal(got.valid.cpu(), want.valid)):
+        raise AssertionError(f"{label}: classes/valid differ")
+    box_err = float((got.boxes.cpu() - want.boxes).abs().max())
+    score_err = float((got.scores.cpu() - want.scores).abs().max())
+    print(f"path: {label} NMSResult vs CPU plain path: classes and valid "
+          f"equal (valid={got.valid.tolist()}), max box err {box_err:.3g}, "
+          f"max score err {score_err:.3g}")
+    if box_err > 1e-6 or score_err > 1e-6:
+        raise AssertionError(f"{label}: boxes/scores differ")
+
+
+# Gates of the bfloat16 serving paths, each ~2x the reading of this
+# script on an NVIDIA H100 80GB HBM3 at 700 W (PERF.md §6): the
+# card's bfloat16 (deltas, logits) against its float32 ones on the same
+# images, max |bf16 - f32| over max |f32| of each output (read 0.150-0.174
+# for MobileNetV2, whose seeded BatchNorm holds no scale, 0.0103-0.0127 for
+# the VGG16 configs), which must also reach BF16_MIN_VS_F32 (a path that
+# served in float32 reads 0: the two run the same kernels); the same
+# outputs against the port's bfloat16 CPU path on the same images and
+# weights, max |card - cpu| over max |cpu| (read 0.0484-0.0578 for
+# MobileNetV2, 0.00585-0.00758 for the VGG16 configs); and the card's
+# bfloat16 NMSResult against that CPU path's by detection_agreement
+# (detections scoring >= 0.05 matched by class at IoU >= 0.5, the smaller
+# direction; read 0.938-0.985: seeded weights score many near-equal junk
+# boxes, whose order one bfloat16 ulp can swap).
+BF16_VS_F32 = {"mobilenet_v2": 0.35, "vgg16": 0.03, "vgg16_512": 0.03}
+BF16_MIN_VS_F32 = 1e-3
+BF16_VS_CPU = {"mobilenet_v2": 0.12, "vgg16": 0.016, "vgg16_512": 0.016}
+BF16_AGREEMENT = 0.85
+
+
+def serving_path_bf16(backbone: str, limit: int, checked: int,
+                      cpu_images: int, f32_run):
+    """The JAX benchmark's bfloat16 serving configuration (BatchNorm
+    folded, backbone and heads in bfloat16) through the serving API,
+    predict.load_model(..., compute_dtype="bfloat16") + predict.serve, at
+    full width on the card with seeded weights, the keep launch counter
+    set to 0 just before and read just after. The first `checked` batches'
+    outputs are held against `f32_run`'s (the float32 path on the same
+    images) by BF16_VS_F32[backbone] and BF16_MIN_VS_F32 and their
+    NMSResult against the CPU plain path fed the card's boxes and scores;
+    their first `cpu_images` images' outputs against the port's bfloat16
+    CPU path by BF16_VS_CPU[backbone], and their detections by
+    BF16_AGREEMENT.
+    Returns (run, launches)."""
+    cfg, model = predict.load_model(backbone, None, SEED, "cuda",
+                                    compute_dtype=BF16)
+    dataset = SyntheticDataset(predict.SYNTHETIC_EVAL_SIZE,
+                               image_size=cfg.img_size,
+                               seed=predict.SYNTHETIC_EVAL_SEED)
+    nms_keep.LAUNCHES = 0
+    run = predict.serve(model, cfg, dataset, PATH_BATCH, limit)
+    torch.cuda.synchronize()
+    launches = nms_keep.LAUNCHES
+    n_batches = len(run.results)
+    label = f"{backbone} bf16"
+    print(f"path: {label} {sum(run.num_valid)} images in {n_batches} "
+          f"batches, nms_keep launches={launches}, mAP={run.mean_ap:.4f} "
+          f"(float32 {f32_run.mean_ap:.4f})")
+    if launches != n_batches:
+        raise AssertionError(f"nms_keep launched {launches} times for "
+                             f"{n_batches} batches ({label})")
+    if not np.isfinite(run.mean_ap):
+        raise AssertionError(f"mAP is not finite ({label})")
+    _, cpu_model = predict.load_model(backbone, None, SEED, "cpu",
+                                      compute_dtype=BF16)
+    anchors_t = torch.from_numpy(run.anchors).to(CARD)
+    for b in range(checked):
+        outputs = run.outputs[b]
+        if not all(torch.isfinite(t).all() for t in outputs):
+            raise AssertionError(f"{label} batch {b}: non-finite outputs")
+        with torch.no_grad():
+            x = torch.from_numpy(run.images[b][:cpu_images])
+            cpu_d, cpu_l = cpu_model(preprocess_images(x))
+        for name, got, f32, cpu in zip(("deltas", "logits"), outputs,
+                                       f32_run.outputs[b], (cpu_d, cpu_l)):
+            rel = float((got - f32).abs().max() / f32.abs().max())
+            head = got[:cpu_images].cpu()
+            cpu_rel = float((head - cpu).abs().max() / cpu.abs().max())
+            share = float((head == cpu).float().mean())
+            print(f"path: {label} batch {b} {name}: max|bf16 - f32| / "
+                  f"max|f32| = {rel:.4g} on the card; card vs cpu bf16 "
+                  f"max err / scale {cpu_rel:.4g}, bit-equal share "
+                  f"{share:.4f}")
+            if not BF16_MIN_VS_F32 <= rel <= BF16_VS_F32[backbone]:
+                raise AssertionError(f"{label} batch {b} {name}: {rel} "
+                                     f"from float32 outside "
+                                     f"[{BF16_MIN_VS_F32}, "
+                                     f"{BF16_VS_F32[backbone]}]")
+            if not cpu_rel <= BF16_VS_CPU[backbone]:
+                raise AssertionError(f"{label} batch {b} {name}: {cpu_rel} "
+                                     f"from the bfloat16 CPU path > "
+                                     f"{BF16_VS_CPU[backbone]}")
+        check_nms_on_cpu(f"{label} batch {b}", run, b, anchors_t)
+        cpu_res = decode_predictions(torch.from_numpy(run.anchors), cpu_d,
+                                     cpu_l, cfg)
+        card_res = run.results[b]
+        agree = detection_agreement(
+            nms.NMSResult(*(t[:cpu_images].cpu().numpy() for t in card_res)),
+            nms.NMSResult(*(t.numpy() for t in cpu_res)))
+        print(f"path: {label} batch {b} detections card vs cpu bf16 on "
+              f"{cpu_images} images: agreement {agree:.4f} (gate "
+              f"{BF16_AGREEMENT})")
+        if agree < BF16_AGREEMENT:
+            raise AssertionError(f"{label} batch {b}: detection agreement "
+                                 f"{agree} < {BF16_AGREEMENT}")
     return run, launches
 
 
@@ -497,7 +658,8 @@ def time_serving(run, images: np.ndarray, batches, label: str) -> dict:
             continue
         out[bs] = bs * 1e3 / ms
         print(f"timing: {label} serving {out[bs]:.1f} img/s at batch {bs} "
-              f"({ms:.3f} ms per batch, uint8 on device -> NMSResult)")
+              f"({ms:.3f} ms per batch, uint8 on device -> NMSResult; "
+              f"{CARD_LINE})")
     return out
 
 
@@ -548,12 +710,14 @@ def time_match(anchors, boxes, labels, cfg) -> dict:
                 **bound)
 
 
-def train_path(backbone: str, batch: int) -> int:
-    """Drive `python -m tfssd_torch.trainer --backbone <backbone>` at full
-    width on the card, then resume it; return the match_encode launches of
-    the first run."""
-    out = ROOT / "build" / "chip_smoke_train" / backbone
-    common = ["--backbone", backbone, "--device", "cuda",
+def train_path(backbone: str, batch: int, flags: Sequence[str] = ()) -> int:
+    """Drive `python -m tfssd_torch.trainer --backbone <backbone> <flags>`
+    at full width on the card, then resume it with the same flags; return
+    the match_encode launches of the first run."""
+    label = " ".join((backbone,) + tuple(flags))
+    out = ROOT / "build" / "chip_smoke_train" / "_".join(
+        (backbone,) + tuple(f.strip("-") for f in flags))
+    common = list(flags) + ["--backbone", backbone, "--device", "cuda",
               "--batch-size", str(batch),
               "--dataset", "synthetic", "--synthetic-size", "256",
               "--steps-per-epoch", str(TRAIN_STEPS), "--val-limit", "1",
@@ -570,44 +734,45 @@ def train_path(backbone: str, batch: int) -> int:
     launches = match_encode.LAUNCHES
     peak = torch.cuda.max_memory_allocated()
     want = run.steps_run + run.val_batches
-    print(f"path: {backbone} trainer at batch {batch} ran {run.steps_run} "
+    print(f"path: {label} trainer at batch {batch} ran {run.steps_run} "
           f"steps and {run.val_batches} validation batches, match_encode "
           f"launches={launches}, val_losses={run.val_losses}, e2e "
           f"img/s={run.e2e_img_per_s}, peak device memory "
           f"{peak / 2**30:.2f} GiB ({held / 2**30:.2f} GiB held before)")
     if launches != want:
         raise AssertionError(f"match_encode launched {launches} times for "
-                             f"{want} train steps + val batches ({backbone})")
+                             f"{want} train steps + val batches ({label})")
     losses = [m["loss"] for m in run.train_metrics] + list(
         run.val_losses.values())
     if not all(math.isfinite(x) for x in losses):
-        raise AssertionError(f"non-finite loss ({backbone}): {losses}")
+        raise AssertionError(f"non-finite loss ({label}): {losses}")
     from tfssd_torch.utils.checkpoint import CheckpointManager
     latest = CheckpointManager(run.model_path).latest_step()
     if latest != run.state.step:
         raise AssertionError(f"latest checkpoint {latest}, trained to step "
-                             f"{run.state.step} ({backbone})")
+                             f"{run.state.step} ({label})")
     del run
     resumed = trainer.main(["--epochs", str(TRAIN_EPOCHS + 1), "--resume"]
                            + common)
-    print(f"path: {backbone} --resume from step {latest} ran "
+    print(f"path: {label} --resume from step {latest} ran "
           f"{resumed.steps_run} steps to step {resumed.state.step}")
     if (resumed.steps_run != TRAIN_STEPS
             or resumed.state.step != latest + TRAIN_STEPS):
         raise AssertionError(f"--resume did not continue from the "
-                             f"checkpoint ({backbone})")
+                             f"checkpoint ({label})")
     return launches
 
 
-def train_path_that_fits(backbone: str):
+def train_path_that_fits(backbone: str, flags: Sequence[str] = ()):
     """(batch, match_encode launches) of train_path at batch 32, or at 16
     where 32 does not fit in device memory; fails where neither fits."""
     for batch in (TRAIN_BATCH, TRAIN_BATCH // 2):
         try:
-            return batch, train_path(backbone, batch)
+            return batch, train_path(backbone, batch, flags)
         except torch.cuda.OutOfMemoryError:
             torch.cuda.empty_cache()
-            print(f"path: {backbone} training at batch {batch} does not fit")
+            print(f"path: {backbone} {' '.join(flags)} training at batch "
+                  f"{batch} does not fit")
     raise AssertionError(f"{backbone} trains at neither batch "
                          f"{TRAIN_BATCH} nor {TRAIN_BATCH // 2}")
 
@@ -666,6 +831,39 @@ STEP_GATES = {
     "vgg16_512": {"loss": 5e-6, "head": 4e-5, "whole": 2.5e-3},
 }
 
+# Gates of the card's bfloat16 train step against the float64 CPU witness
+# (the largest relative loss error / the head gradient's and the whole
+# gradient's relative distance), ~3x the largest reading of this script
+# over noise and synthetic images (NVIDIA H100 80GB HBM3, 700 W; PERF.md
+# §6), with the bfloat16 CPU step's beside it:
+#   MobileNetV2, batch 8: 5.2e-3-1.2e-2 (cpu 2.0e-3-5.9e-3); 0.154-0.162
+#     (0.159-0.162); 1.14-1.17 (1.10-1.20). At random weights BatchNorm
+#     amplifies bfloat16 rounding below the head until the backbone's
+#     whole gradient is noise (JAX's bfloat16 step too,
+#     tests/test_torch_bf16.py): an all-zero gradient reads 1.0, so no
+#     gate on it can tell a wrong backward from rounding. It has none; the
+#     backbone's backward is held stage by stage instead
+#     (BF16_LOCAL_GATES).
+#   SSD300-VGG16, batch 2: 3.9e-4-4.8e-4 (1.4e-4-5.0e-4); 0.019-0.027
+#     (0.019-0.032); 0.050-0.062 (0.051-0.070).
+#   SSD512-VGG16, batch 1: 1.2e-3 (6.0e-4-1.1e-3); 8.4e-3-8.6e-3
+#     (7.1e-3-9.2e-3); 0.040-0.047 (0.041-0.044).
+# The step must also fail the float32 gates above: it computes in
+# bfloat16.
+BF16_STEP_GATES = {
+    "mobilenet_v2": {"loss": 4e-2, "head": 0.5},
+    "vgg16": {"loss": 2e-3, "head": 0.08, "whole": 0.2},
+    "vgg16_512": {"loss": 4e-3, "head": 0.03, "whole": 0.15},
+}
+
+# Gate of the bfloat16 train step's backward held stage by stage
+# (_local_backward): the largest relative distance over the stages'
+# parameter gradients and output gradients, ~3x the largest reading of
+# this script (MobileNetV2, batch 8, noise and synthetic images: 0.063
+# parameters, 0.066 output gradients; NVIDIA H100 80GB HBM3, 700 W;
+# PERF.md §6). A stage whose backward returned nothing reads 1.0.
+BF16_LOCAL_GATES = {"mobilenet_v2": 0.2}
+
 # Parameter groups of each backbone, head to stem, whose card-vs-CPU
 # gradient distance is printed (where the rounding differences grow).
 DEPTH_GROUPS = {
@@ -689,29 +887,101 @@ def _distances(got, want, names, head) -> dict:
 
 
 def _step_readings(cfg, card: str, host) -> dict:
-    """One train step of `host` on the card (float32, and TF32 as the
-    control) and on the CPU (float32, and the float64 witness); each one's
-    distances from the witness."""
+    """One train step of `host` on the card (float32, TF32 as the control,
+    and bfloat16) and on the CPU (float32, bfloat16, and the float64
+    witness); each one's distances from the witness."""
+    bf16 = dataclasses.replace(cfg, compute_dtype=BF16)
     steps = {"card": _one_train_step(cfg, card, host),
              "tf32": _one_train_step(cfg, card, host, tf32=True),
+             "bf16": _one_train_step(bf16, card, host),
              "cpu": _one_train_step(cfg, "cpu", host),
+             "bf16_cpu": _one_train_step(bf16, "cpu", host),
              "f64": _one_train_step(cfg, "cpu", host, torch.float64)}
     names = sorted(steps["f64"][1])
     head = [n for n in names if n.startswith("head.")]
     out = {run: _distances(steps[run], steps["f64"], names, head)
-           for run in ("card", "tf32", "cpu")}
-    out["by_depth"] = {
-        grp: _rel_norm(steps["card"][1], steps["f64"][1],
-                       [n for n in names if n.startswith(grp)])
-        for grp in DEPTH_GROUPS[cfg.backbone]}
+           for run in ("card", "tf32", "bf16", "cpu", "bf16_cpu")}
+    for key, run in (("by_depth", "card"), ("by_depth_bf16", "bf16")):
+        out[key] = {
+            grp: _rel_norm(steps[run][1], steps["f64"][1],
+                           [n for n in names if n.startswith(grp)])
+            for grp in DEPTH_GROUPS[cfg.backbone]}
     out["losses"] = {run: steps[run][0]["loss"] for run in steps}
     return out
 
 
 def _refused(reading: dict, gates: dict) -> list:
-    """The gates that `reading` fails."""
-    failed = [k for k in ("loss", "head", "whole") if reading[k] > gates[k]]
+    """The gates that `reading` fails (a NaN reading fails)."""
+    failed = [k for k in gates if not reading[k] <= gates[k]]
     return failed + ([] if reading["num_pos"] else ["num_pos"])
+
+
+def _local_backward(cfg, card: str, host) -> dict:
+    """One train step of `host` on the card (augmentation off), its
+    backward held stage by stage: each child of the backbone that holds
+    parameters, and the head, is run again in a float64 copy of the seeded
+    weights on the CPU, on the step's own inputs of that stage and
+    backward from the step's own gradients of its outputs. Returns
+    {stage: (distance of its parameters' gradient, of its outputs'
+    gradients)}: the latter against the sum of the witness gradients of
+    the stages that read them (None where no stage does). Held so, a
+    stage's rounding is not amplified by the stages after it."""
+    dev = torch.device(card)
+    state = create_train_state(cfg, SEED, dev, make_lr_schedule(TRAIN_STEPS))
+    witness = init_random_weights(get_model(dataclasses.replace(
+        cfg, compute_dtype="float32")), SEED).double().train()
+    stages = [(f"backbone.{n}", m)
+              for n, m in state.model.backbone.named_children()
+              if next(m.parameters(), None) is not None]
+    stages.append(("head", state.model.head))
+    seen = []
+
+    def hook(name):
+        def record(module, args, out):
+            outs = list(out) if isinstance(out, tuple) else [out]
+            for o in outs:
+                o.retain_grad()
+            ins = [t for a in args
+                   for t in (a if isinstance(a, (list, tuple)) else [a])]
+            seen.append((name, module, ins, outs))
+        return record
+
+    handles = [m.register_forward_hook(hook(n)) for n, m in stages]
+    try:
+        make_train_step(torch.from_numpy(generate_anchors(cfg)).to(dev), cfg,
+                        augment=False)(state, {
+                            k: torch.from_numpy(host[k]).to(dev)
+                            for k in ("image", "boxes", "labels")})
+    finally:
+        for h in handles:
+            h.remove()
+
+    def dist(got, want) -> float:
+        scale = float(want.norm())
+        err = float((got - want).norm())
+        return err / scale if scale else (0.0 if err == 0 else math.inf)
+
+    wanted, params = {}, {}
+    for name, module, ins, outs in seen:
+        twin = witness.get_submodule(name)
+        xs = [x.detach().double().cpu().requires_grad_(x.requires_grad)
+              for x in ins]
+        ys = twin(xs) if name == "head" else twin(*xs)
+        torch.autograd.backward(
+            list(ys) if isinstance(ys, tuple) else [ys],
+            [o.grad.double().cpu() for o in outs])
+        for x, wx in zip(ins, xs):
+            if wx.grad is not None:
+                wanted[id(x)] = wanted.get(id(x), 0) + wx.grad
+        got = torch.cat([p.grad.double().cpu().reshape(-1)
+                         for p in module.parameters()])
+        want = torch.cat([p.grad.reshape(-1) for p in twin.parameters()])
+        params[name] = dist(got, want)
+    return {name: (params[name],
+                   max((dist(o.grad.double().cpu(), wanted[id(o)])
+                        for o in outs if id(o) in wanted),
+                       default=None))
+            for name, _, _, outs in seen}
 
 
 def train_step_card_vs_cpu(name: str, card: str = "cuda") -> dict:
@@ -730,7 +1000,9 @@ def train_step_card_vs_cpu(name: str, card: str = "cuda") -> dict:
     the same loss; noise has no such ties. Rounding differences grow from
     the head towards the stem (BatchNorm in MobileNetV2; VGG16 has no norm
     but conv4_3's), so the whole gradient is held looser than the
-    head's."""
+    head's. The bfloat16 step is held by BF16_STEP_GATES[name], and where
+    its whole gradient is rounding noise (MobileNetV2) its backward stage
+    by stage by BF16_LOCAL_GATES[name]."""
     cfg, gates, batch = get_hyper_params(name), STEP_GATES[name], \
         PARITY_BATCH[name]
     ds = SyntheticDataset(batch, image_size=cfg.img_size, seed=0)
@@ -750,10 +1022,41 @@ def train_step_card_vs_cpu(name: str, card: str = "cuda") -> dict:
               + "; TF32 control " + json.dumps(r["tf32"])
               + "; float32 cpu " + json.dumps(r["cpu"])
               + "; card by depth " + json.dumps(r["by_depth"]))
+        print(f"path: {name} bf16 train step card vs cpu ({kind} images): "
+              f"vs the float64 witness: bfloat16 card "
+              + json.dumps(r["bf16"]) + "; bfloat16 cpu "
+              + json.dumps(r["bf16_cpu"]) + "; bfloat16 card by depth "
+              + json.dumps(r["by_depth_bf16"]))
         failed = _refused(r["card"], gates)
         if failed:
             raise AssertionError(f"{name} train step card vs cpu ({kind}): "
                                  f"{failed} beyond {gates}")
+        failed = _refused(r["bf16"], BF16_STEP_GATES[name])
+        if failed:
+            raise AssertionError(f"{name} bf16 train step card vs cpu "
+                                 f"({kind}): {failed} beyond "
+                                 f"{BF16_STEP_GATES[name]}")
+        if not _refused(r["bf16"], gates):
+            raise AssertionError(f"{name} bf16 train step ({kind}) passes "
+                                 f"the float32 gates: it does not compute "
+                                 f"in bfloat16")
+        if name in BF16_LOCAL_GATES:
+            local = _local_backward(dataclasses.replace(
+                cfg, compute_dtype=BF16), card, host)
+            values = [v for pair in local.values() for v in pair
+                      if v is not None]
+            worst = math.nan if any(map(math.isnan, values)) \
+                else max(values)
+            print(f"path: {name} bf16 train step's backward stage by stage "
+                  f"({kind} images) vs the float64 witness, (parameters, "
+                  f"outputs): " + json.dumps(
+                      {k: [v if v is None else round(v, 6) for v in pair]
+                       for k, pair in local.items()})
+                  + f"; largest {worst:.4g} (gate {BF16_LOCAL_GATES[name]})")
+            if not worst <= BF16_LOCAL_GATES[name]:
+                raise AssertionError(f"{name} bf16 backward stage by stage "
+                                     f"({kind}): {worst} > "
+                                     f"{BF16_LOCAL_GATES[name]}")
     for kind, r in readings.items():
         missed = set(gates) - set(_refused(r["tf32"], gates))
         if missed:
@@ -763,11 +1066,79 @@ def train_step_card_vs_cpu(name: str, card: str = "cuda") -> dict:
     return readings
 
 
-def time_train_step(backbone: str, batch: int) -> None:
+# Gate of the remat step against the plain step (bfloat16, batch 32, the
+# same state and batch): the whole gradient's relative distance, beside
+# the plain step repeated (cuDNN's backward could sum in another order from
+# one run to the next; it read 0, and so did remat, on an NVIDIA H100 80GB
+# HBM3, PERF.md §6); the loss and the BatchNorm statistics must be
+# equal.
+REMAT_GRAD = 1e-6
+
+
+def remat_step_check(name: str) -> dict:
+    """One bfloat16 train step of `name` at TRAIN_BATCH (augmentation off,
+    the synthetic images) from the same seeded state on the card: plain,
+    plain again, and with remat. The remat step's loss and BatchNorm
+    statistics must equal the plain step's (each count at 1: the recompute
+    leaves them alone) and its gradient lie within REMAT_GRAD of it; the
+    peak device memory of each step (the state included) is printed."""
+    base = get_hyper_params(name, compute_dtype=BF16)
+    host, _ = stage_arrays(SyntheticDataset(TRAIN_BATCH,
+                                            image_size=base.img_size,
+                                            seed=0), base.max_gt_boxes)
+    anchors = torch.from_numpy(generate_anchors(base)).to(CARD)
+    out = {}
+    for label, remat in (("plain", False), ("again", False), ("remat", True)):
+        cfg = dataclasses.replace(base, remat=remat)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        state = create_train_state(cfg, SEED, CARD,
+                                   make_lr_schedule(TRAIN_STEPS))
+        data = {k: torch.from_numpy(host[k]).to(CARD)
+                for k in ("image", "boxes", "labels")}
+        metrics = make_train_step(anchors, cfg, augment=False)(state, data)
+        torch.cuda.synchronize()
+        out[label] = dict(
+            loss=float(metrics["loss"]),
+            peak=(torch.cuda.max_memory_allocated() - held) / 2**30,
+            grads={n: p.grad.double().cpu()
+                   for n, p in state.model.named_parameters()},
+            stats={k: v.cpu() for k, v in state.model.state_dict().items()
+                   if "running_" in k or "num_batches" in k})
+        del state, data, metrics
+    names = sorted(out["plain"]["grads"])
+    again = _rel_norm(out["again"]["grads"], out["plain"]["grads"], names)
+    remat = _rel_norm(out["remat"]["grads"], out["plain"]["grads"], names)
+    stats_equal = all(torch.equal(out["remat"]["stats"][k], v)
+                      for k, v in out["plain"]["stats"].items())
+    counts = [int(v) for k, v in out["remat"]["stats"].items()
+              if "num_batches" in k]
+    print(f"path: {name} bf16 remat step at batch {TRAIN_BATCH}: loss plain "
+          f"{out['plain']['loss']:.6f} again {out['again']['loss']:.6f} "
+          f"remat {out['remat']['loss']:.6f}; whole gradient vs plain: "
+          f"again {again:.3g}, remat {remat:.3g}; BatchNorm statistics "
+          f"equal={stats_equal} ({len(counts)} counts, all 1="
+          f"{all(c == 1 for c in counts)}); peak device memory plain "
+          f"{out['plain']['peak']:.2f} GiB, remat "
+          f"{out['remat']['peak']:.2f} GiB ({CARD_LINE})")
+    if out["remat"]["loss"] != out["plain"]["loss"]:
+        raise AssertionError(f"{name} remat loss differs")
+    if remat > REMAT_GRAD:
+        raise AssertionError(f"{name} remat gradient {remat} from the "
+                             f"plain step > {REMAT_GRAD}")
+    if not stats_equal or any(c != 1 for c in counts):
+        raise AssertionError(f"{name} remat BatchNorm statistics differ")
+    return {k: out[k]["peak"] for k in out}
+
+
+def time_train_step(backbone: str, batch: int, compute_dtype="float32",
+                    remat: bool = False) -> dict:
     """Print the ms per train step of `backbone` at `batch`, augmentation
     on, device-resident data (host clock around synchronised steps), and
-    the peak device memory of those steps."""
-    cfg = get_hyper_params(backbone)
+    the peak device memory of those steps; return both."""
+    cfg = get_hyper_params(backbone, compute_dtype=compute_dtype,
+                           remat=remat)
     ds = SyntheticDataset(256, image_size=cfg.img_size, seed=0)
     host, n = stage_arrays(ds, cfg.max_gt_boxes)
     data = {k: torch.from_numpy(host[k]).to(CARD)
@@ -787,20 +1158,34 @@ def time_train_step(backbone: str, batch: int) -> None:
     torch.cuda.synchronize()
     ms = (time.perf_counter() - t0) * 1e3 / 10
     peak = torch.cuda.max_memory_allocated() / 2**30
-    print(f"timing: {backbone} train {ms:.3f} ms per step, "
-          f"{batch * 1e3 / ms:.1f} img/s at batch {batch} (augmentation on, "
-          f"device-resident uint8 data), peak device memory {peak:.2f} GiB")
+    print(f"timing: {backbone} {compute_dtype}{' remat' if remat else ''} "
+          f"train {ms:.3f} ms per step, {batch * 1e3 / ms:.1f} img/s at "
+          f"batch {batch} (augmentation on, device-resident uint8 data), "
+          f"peak device memory {peak:.2f} GiB ({CARD_LINE})")
+    return {"ms": ms, "peak_gib": peak}
+
+
+def card_line() -> str:
+    """The card's name and power limit, as nvidia-smi prints them."""
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True)
+    return smi.stdout.strip().splitlines()[0]
 
 
 def main() -> int:
+    global CARD_LINE
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 1
     t_start = time.perf_counter()
     device = CARD
     kind = torch.cuda.get_device_name(0)
+    CARD_LINE = card_line()
     print(f"device: {kind}, torch {torch.__version__}, CUDA "
-          f"{torch.version.cuda}, {torch.cuda.device_count()} visible")
+          f"{torch.version.cuda}, {torch.cuda.device_count()} visible; "
+          f"{CARD_LINE}")
 
     section("1. build")
     build_all()
@@ -825,6 +1210,17 @@ def main() -> int:
         parity[name, PATH_BATCH] = err
         vgg_match[name] = training_batch(vcfg, device)
         del vmodel
+    # the bfloat16 serving path's candidates (float32 scores from
+    # bfloat16 logits: more exact ties)
+    for name in TRAIN_CONFIGS:
+        bcfg, bmodel = predict.load_model(name, None, SEED, device,
+                                          compute_dtype=BF16)
+        imgs = images if name == "mobilenet_v2" else {
+            PATH_BATCH: vgg_images[name][:PATH_BATCH]}
+        for bs, batch_images in imgs.items():
+            _, _, parity[f"{name}_bf16", bs] = check_keep_on_candidates(
+                bmodel, bcfg, batch_images, f"{name} bf16")
+        del bmodel
     check_keep_cases(device)
     m_anchors, m_boxes, m_labels = training_batch(cfg, device)
     match_err = max([check_match_encode(cfg, m_anchors, m_boxes, m_labels)]
@@ -838,9 +1234,21 @@ def main() -> int:
     for name in VGG_CONFIGS:
         vgg_runs[name], vgg_launches[name] = serving_path(
             name, VGG_PATH_IMAGES, 1, VGG_CPU_IMAGES)
+    bf16_runs, bf16_launches = {}, {}
+    for name in TRAIN_CONFIGS:
+        f32_run = run if name == "mobilenet_v2" else vgg_runs[name]
+        depth = ((PATH_IMAGES, 2, PATH_BATCH) if name == "mobilenet_v2"
+                 else (VGG_PATH_IMAGES, 1, VGG_CPU_IMAGES))
+        bf16_runs[name], bf16_launches[name] = serving_path_bf16(
+            name, *depth, f32_run)
     trained = {name: train_path_that_fits(name) for name in TRAIN_CONFIGS}
+    trained_bf16 = {name: train_path_that_fits(name, ("--bf16",))
+                    for name in TRAIN_CONFIGS}
+    trained_remat = train_path_that_fits("vgg16_512", ("--bf16", "--remat"))
     for name in TRAIN_CONFIGS:
         train_step_card_vs_cpu(name)
+    for name in REMAT_CONFIGS:
+        remat_step_check(name)
 
     section("4. timing")
     fits = time_serving(run, images[64], ((PATH_BATCH, 30), (64, 10)),
@@ -857,22 +1265,35 @@ def main() -> int:
         if PATH_BATCH not in fits or len(fits) < 2:
             raise AssertionError(f"{name} serves at batches {sorted(fits)} "
                                  f"only: neither 64 nor 32 fits")
+    bf16_fits = time_serving(bf16_runs["mobilenet_v2"],
+                             eval_images(cfg, HEADLINE_BATCH),
+                             ((PATH_BATCH, 30), (64, 10),
+                              (HEADLINE_BATCH, 5)), "mobilenet_v2 bf16")
+    if set(bf16_fits) != {PATH_BATCH, 64, HEADLINE_BATCH}:
+        raise AssertionError(f"mobilenet_v2 bf16 serves at batches "
+                             f"{sorted(bf16_fits)} only")
+    for name in VGG_CONFIGS:
+        bf16_fits = time_serving(bf16_runs[name], vgg_images[name],
+                                 ((PATH_BATCH, 10), (64, 5)),
+                                 f"{name} bf16")
+        if set(bf16_fits) != {PATH_BATCH, 64}:
+            raise AssertionError(f"{name} bf16 serves at batches "
+                                 f"{sorted(bf16_fits)} only")
     rows = {r: time_keep(boxes, scores, thr, "mobilenet_v2")
             for r, (boxes, scores) in sorted(cands.items())}
     vgg_rows = {name: time_keep(boxes, scores, thr, name)
                 for name, (boxes, scores) in vgg_cands.items()}
     for name, (batch, _) in trained.items():
         time_train_step(name, batch)
+    for name, (batch, _) in trained_bf16.items():
+        time_train_step(name, batch, BF16)
+    time_train_step("vgg16_512", trained_remat[0], BF16, remat=True)
     me_row = time_match(m_anchors, m_boxes, m_labels, cfg)
     me_rows = {batch[0].shape[0]: time_match(*batch, get_hyper_params(name))
                for name, batch in vgg_match.items()}
     ssd512 = get_hyper_params("vgg16_512")
     full_row = time_match(*full_g_batch(ssd512, device), ssd512)
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60, check=True)
-    print(smi.stdout.strip().splitlines()[0])
+    print(card_line())
 
     section("5. kernels")
     print(f"chip_smoke: whole run {time.perf_counter() - t_start:.1f} s")
@@ -894,6 +1315,8 @@ def main() -> int:
         entry[f"launches_{name}"] = vgg_launches[name]
         entry.update({f"{key}_{name}": vgg_rows[name][key]
                       for key in timed})
+    for name in TRAIN_CONFIGS:
+        entry[f"launches_bf16_{name}"] = bf16_launches[name]
     b, g = m_labels.shape
     match_entry = {
         "name": "match_encode", "route": "cuda",
@@ -912,6 +1335,11 @@ def main() -> int:
     for name in VGG_CONFIGS:
         match_entry[f"train_batch_{name}"], match_entry[
             f"launches_{name}"] = trained[name]
+    for name in TRAIN_CONFIGS:
+        match_entry[f"train_batch_bf16_{name}"], match_entry[
+            f"launches_bf16_{name}"] = trained_bf16[name]
+    match_entry["train_batch_bf16_remat_vgg16_512"], match_entry[
+        "launches_bf16_remat_vgg16_512"] = trained_remat
     print(json.dumps({"kernels": [entry, match_entry]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -59,11 +59,13 @@ def seeded_moments(params, seed: int = 0):
     return mu, nu
 
 
-def jax_reference(jcfg, tcfg, state, batch, mu, nu, count: int = 3):
+def jax_reference(jcfg, tcfg, state, batch, mu, nu, count: int = 3,
+                  with_eval: bool = True):
     """The JAX train step (augmentation off) and eval step from `state`
     with Adam's moments `mu`, `nu` at `count`: a dict of the inputs and the
     step's loss metrics, gradients, updated params, batch_stats, moments,
-    grad_norm and the eval step's metrics, as numpy."""
+    grad_norm and the eval step's metrics (None without `with_eval`), as
+    numpy."""
     model = j_get_model(jcfg)
     anchors = generate_anchors(jcfg)
     opt = jtrain.make_optimizer(LR)
@@ -100,7 +102,8 @@ def jax_reference(jcfg, tcfg, state, batch, mu, nu, count: int = 3):
 
     metrics, grads, new_params, stats, gnorm, adam = step(state.params,
                                                           opt_state)
-    eval_metrics = jax.jit(jtrain.make_eval_step(model, anchors))(state, jb)
+    eval_metrics = (jax.jit(jtrain.make_eval_step(model, anchors))(state, jb)
+                    if with_eval else {})
     return dict(tcfg=tcfg, anchors=anchors, state=state, mu=mu, nu=nu,
                 count=count, batch=batch,
                 metrics={k: float(v) for k, v in metrics.items()},

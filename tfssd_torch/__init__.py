@@ -37,7 +37,8 @@ from tfssd_torch.config import SSDConfig, get_hyper_params  # noqa: F401
 
 __version__ = "0.1.0"
 
-# The port serves in float32 (SSDConfig.compute_dtype). cuDNN convolutions
+# The port computes in float32 unless SSDConfig.compute_dtype says
+# bfloat16, and its float32 parts stay float32 then too. cuDNN convolutions
 # default to TF32 on Hopper, which keeps about three decimal digits: turn it
 # off for convolutions and matmuls alike.
 torch.backends.cudnn.allow_tf32 = False

@@ -5,6 +5,8 @@ Per class, score-ordered TP/FP assignment at IoU >= 0.5 against the gt
 (each gt matched at most once), precision/recall curve -> AP; difficult gt
 boxes are ignored (neither TP nor FP). VOC2007 11-point interpolation by
 default, continuous (VOC2010+) area under the curve on request.
+`detection_agreement` (the port's own) compares two serving paths'
+detections.
 """
 
 from __future__ import annotations
@@ -151,3 +153,31 @@ def detections_from_nms_result(res, num_valid: Optional[int] = None
         {"boxes": boxes[i], "scores": scores[i], "classes": classes[i]}
         for i in range(n)
     ]
+
+
+def detection_agreement(got, want) -> float:
+    """Share of the detections of two NMSResults (numpy, (B, T, ...)) that
+    the other one also reports: a detection scoring at least 0.05 agrees
+    when the other result holds one of the same class in the same image at
+    IoU >= 0.5 scoring at least 0.025. The smaller of the two directions;
+    1.0 when neither has such a detection. Two serving paths that round
+    differently (bfloat16 on two devices) are held by it, where their junk
+    tails below 0.05 may reorder."""
+    min_score, min_iou = 0.05, 0.5
+    shares = []
+    for a, b in ((got, want), (want, got)):
+        hits = total = 0
+        for i in range(len(a.valid)):
+            bn = int(b.valid[i])
+            b_ok = b.scores[i, :bn] >= min_score / 2
+            for j in range(int(a.valid[i])):
+                if a.scores[i, j] < min_score:
+                    continue
+                total += 1
+                same = b_ok & (b.classes[i, :bn] == a.classes[i, j])
+                if same.any() and _iou_1many(
+                        a.boxes[i, j], b.boxes[i, :bn][same]).max() \
+                        >= min_iou:
+                    hits += 1
+        shares.append(hits / total if total else 1.0)
+    return min(shares)

@@ -6,18 +6,21 @@ expansion ReLU6 of block 13 (Keras block_13_expand_relu, 19x19x576 at 300
 input), tap 2 the 1280-wide final 1x1 conv (10x10), then four extra blocks
 give 5/3/2/1: six taps in all. Submodule names are the Flax names
 (stem, block0..block16 with block13 split into block13_expand/_depthwise/
-_project, head_conv, extra0..extra3).
+_project, head_conv, extra0..extra3). The images are cast to the compute
+dtype at the entry (models/layers.py). Each of the stem, the blocks, the
+head conv and the extras is one stage of `forward`'s stage runner (block
+13: its expansion, then the rest).
 """
 
 from __future__ import annotations
 
-from typing import List, Tuple
+from typing import List, Optional, Tuple
 
 import torch
 from torch import nn
 
 from tfssd_torch.models.layers import (BN_MOMENTUM, ConvBN, ExtraFeatureBlock,
-                                      InvertedResidual)
+                                      InvertedResidual, run_stage)
 
 # (expand_ratio t, channels c, repeats n, first stride s) — MBv2 Table 2.
 _MBV2_SCHEDULE = (
@@ -39,9 +42,12 @@ class MobileNetV2Backbone(nn.Module):
     """Trunk + SSD extras: NCHW images -> six NCHW feature maps."""
 
     def __init__(self, fold_bn: bool = False,
-                 bn_momentum: float = BN_MOMENTUM):
+                 bn_momentum: float = BN_MOMENTUM,
+                 compute_dtype: Optional[torch.dtype] = None):
         super().__init__()
-        bn = dict(fold_bn=fold_bn, bn_momentum=bn_momentum)
+        self.compute_dtype = compute_dtype
+        bn = dict(fold_bn=fold_bn, bn_momentum=bn_momentum,
+                  compute_dtype=compute_dtype)
         self.stem = ConvBN(3, 32, 3, 2, **bn)
         # Block names in forward order; block 13 is three modules.
         self._order: List[str] = []
@@ -74,20 +80,27 @@ class MobileNetV2Backbone(nn.Module):
                             ExtraFeatureBlock(inp, r, f, **bn))
             inp = f
 
-    def forward(self, x: torch.Tensor) -> List[torch.Tensor]:
-        x = self.stem(x)
+    def _tap_block_rest(self, y: torch.Tensor) -> torch.Tensor:
+        """Block 13 after its expansion (the tap): depthwise, project."""
+        name = self._tap_block
+        return getattr(self, f"{name}_project")(
+            getattr(self, f"{name}_depthwise")(y))
+
+    def forward(self, x: torch.Tensor, run=run_stage) -> List[torch.Tensor]:
+        if self.compute_dtype is not None:
+            x = x.to(self.compute_dtype)
+        x = run(self.stem, x)
         taps: List[torch.Tensor] = []
         for name in self._order:
             if name == self._tap_block:
-                y = getattr(self, f"{name}_expand")(x)
+                y = run(getattr(self, f"{name}_expand"), x)
                 taps.append(y)
-                y = getattr(self, f"{name}_depthwise")(y)
-                x = getattr(self, f"{name}_project")(y)
+                x = run(self._tap_block_rest, y)
             else:
-                x = getattr(self, name)(x)
-        x = self.head_conv(x)
+                x = run(getattr(self, name), x)
+        x = run(self.head_conv, x)
         taps.append(x)
         for j in range(len(_EXTRAS)):
-            x = getattr(self, f"extra{j}")(x)
+            x = run(getattr(self, f"extra{j}"), x)
             taps.append(x)
         return taps

@@ -11,19 +11,23 @@ Taps: conv4_3_norm (512 channels), fc7 (1024), then the extras conv8 ..
 conv11: 38/19/10/5/3/1 at 300 input, the last two VALID stride 1. SSD512
 adds conv12 and halves 32 -> 16 -> 8 -> 4 -> 2 -> 1 with SAME stride-2
 extras: seven taps, 64 ... 1. Submodule names are the Flax names
-(conv1_1 ... conv5_3, conv4_3_norm, fc6, fc7, conv8 ... conv12).
+(conv1_1 ... conv5_3, conv4_3_norm, fc6, fc7, conv8 ... conv12). The
+images are cast to the compute dtype at the entry; every conv, ReLU and
+pool runs in it, conv4_3_norm in float32 (models/layers.py). The stages
+of `forward`'s stage runner: each of the first three conv groups with its
+pool, conv group 4, conv4_3_norm, pool4 to fc7, and each extra block.
 """
 
 from __future__ import annotations
 
-from typing import List, Tuple
+from typing import List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 from tfssd_torch.models.layers import (ExtraFeatureBlock, L2Norm, SameConv2d,
-                                      same_max_pool2d)
+                                      run_stage, same_max_pool2d)
 
 # (channels, convs) of the five conv groups.
 _GROUPS = ((64, 2), (128, 2), (256, 3), (512, 3), (512, 3))
@@ -44,22 +48,25 @@ class VGG16Backbone(nn.Module):
     """Trunk + SSD extras: NCHW images -> six (SSD300) or seven (SSD512)
     NCHW feature maps."""
 
-    def __init__(self, ssd512: bool = False):
+    def __init__(self, ssd512: bool = False,
+                 compute_dtype: Optional[torch.dtype] = None):
         super().__init__()
+        self.compute_dtype = compute_dtype
+        dt = dict(compute_dtype=compute_dtype)
         inp = 3
         for g, (features, count) in enumerate(_GROUPS, 1):
             for i in range(1, count + 1):
                 self.add_module(f"conv{g}_{i}",
-                                SameConv2d(inp, features, 3))
+                                SameConv2d(inp, features, 3, **dt))
                 inp = features
         self.conv4_3_norm = L2Norm(512, 20.0)
-        self.fc6 = SameConv2d(512, 1024, 3, dilation=6)
-        self.fc7 = SameConv2d(1024, 1024, 1)
+        self.fc6 = SameConv2d(512, 1024, 3, dilation=6, **dt)
+        self.fc7 = SameConv2d(1024, 1024, 1, **dt)
         self._extras = _EXTRAS_512 if ssd512 else _EXTRAS_300
         inp = 1024
         for j, (r, f, s, p) in enumerate(self._extras):
             self.add_module(f"conv{8 + j}", ExtraFeatureBlock(
-                inp, r, f, stride=s, padding=p, use_bn=False))
+                inp, r, f, stride=s, padding=p, use_bn=False, **dt))
             inp = f
 
     def _group(self, x: torch.Tensor, g: int) -> torch.Tensor:
@@ -67,16 +74,25 @@ class VGG16Backbone(nn.Module):
             x = F.relu(getattr(self, f"conv{g}_{i}")(x))
         return x
 
-    def forward(self, x: torch.Tensor) -> List[torch.Tensor]:
-        for g in (1, 2, 3):
-            x = same_max_pool2d(self._group(x, g), 2, 2)
-        x = self._group(x, 4)
-        taps = [self.conv4_3_norm(x)]
+    def _pooled_group(self, x: torch.Tensor, g: int) -> torch.Tensor:
+        return same_max_pool2d(self._group(x, g), 2, 2)
+
+    def _fc(self, x: torch.Tensor) -> torch.Tensor:
+        """pool4, conv group 5, pool5, fc6, fc7."""
         x = self._group(same_max_pool2d(x, 2, 2), 5)
         x = same_max_pool2d(x, 3, 1)
-        x = F.relu(self.fc7(F.relu(self.fc6(x))))
+        return F.relu(self.fc7(F.relu(self.fc6(x))))
+
+    def forward(self, x: torch.Tensor, run=run_stage) -> List[torch.Tensor]:
+        if self.compute_dtype is not None:
+            x = x.to(self.compute_dtype)
+        for g in (1, 2, 3):
+            x = run(self._pooled_group, x, g)
+        x = run(self._group, x, 4)
+        taps = [run(self.conv4_3_norm, x)]
+        x = run(self._fc, x)
         taps.append(x)
         for j in range(len(self._extras)):
-            x = getattr(self, f"conv{8 + j}")(x)
+            x = run(getattr(self, f"conv{8 + j}"), x)
             taps.append(x)
         return taps

@@ -10,7 +10,10 @@ synthetic eval), run as
     python -m tfssd_torch.predict --backbone vgg16_512 --random-weights ...
 
 --backbone is a config name of get_hyper_params: mobilenet_v2 and vgg16
-(SSD300), vgg16_512 (SSD512).
+(SSD300), vgg16_512 (SSD512). The CLI serves in float32, as the JAX
+predictor does; load_model(..., compute_dtype="bfloat16") + serve is the
+bfloat16 serving configuration of the JAX benchmark (BN folded, backbone
+and heads in bfloat16, decode and NMS in float32).
 
 --weights takes an .npz of the Flax variable tree with '/'-joined keys
 (utils/convert.py:flatten_tree; README.md shows how to write one from the
@@ -55,12 +58,13 @@ SYNTHETIC_EVAL_SEED = 10_000
 
 
 def load_model(backbone: str = "mobilenet_v2", weights: Optional[str] = None,
-               seed: int = 0, device="cuda"):
+               seed: int = 0, device="cuda", compute_dtype: str = "float32"):
     """(config, model) ready to serve: weights from an .npz of the Flax tree
     (folded or not) or seeded random weights, BatchNorm folded (VGG16 has
-    none), eval mode, on `device`."""
+    none), eval mode, on `device`, computing in `compute_dtype` (the
+    config's field; the weights stay float32)."""
     dev = resolve_device(device)
-    cfg = get_hyper_params(backbone)
+    cfg = get_hyper_params(backbone, compute_dtype=compute_dtype)
     if weights is not None:
         with np.load(weights) as npz:
             tree = {k: npz[k] for k in npz.files}

@@ -1,12 +1,12 @@
 """Where the serving time goes on the card: two torch.profiler windows.
 
     python -m tfssd_torch.profile_serving [--backbone vgg16] \
-        [--batch-size 64] [--iters 10]
+        [--batch-size 64] [--iters 10] [--bf16]
 
 Serves a configuration (SSD300-MobileNetV2 unless --backbone says
 otherwise: vgg16 is SSD300-VGG16, vgg16_512 SSD512-VGG16) at full width
-with seeded weights on
-device-resident uint8 synthetic images (uint8 -> NMSResult, as
+with seeded weights, BatchNorm folded, in float32 or (--bf16) in
+bfloat16, on device-resident uint8 synthetic images (uint8 -> NMSResult, as
 chip_smoke.py times it) and prints, per batch: the wall time (host clock
 around synchronised work), the device busy time (the sum of the CUDA
 kernels' device time in the window) and the idle share, the device time by
@@ -102,10 +102,14 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     p.add_argument("--iters", type=int, default=10)
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
+    p.add_argument("--bf16", action="store_true",
+                   help="bfloat16 backbone and heads (SSDConfig."
+                        "compute_dtype), float32 parameters")
     args = p.parse_args(argv)
 
-    cfg, model = predict.load_model(args.backbone, None, args.seed,
-                                    args.device)
+    cfg, model = predict.load_model(
+        args.backbone, None, args.seed, args.device,
+        compute_dtype="bfloat16" if args.bf16 else "float32")
     device = next(model.parameters()).device
     dataset = SyntheticDataset(predict.SYNTHETIC_EVAL_SIZE,
                                image_size=cfg.img_size,
@@ -143,7 +147,8 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     name = (torch.cuda.get_device_name(device) if device.type == "cuda"
             else "cpu")
     print(f"profile: {args.backbone}, batch {args.batch_size}, {args.iters} "
-          f"iterations, cudnn.benchmark={torch.backends.cudnn.benchmark}, "
+          f"iterations, {cfg.compute_dtype}, "
+          f"cudnn.benchmark={torch.backends.cudnn.benchmark}, "
           f"device={name}")
     print(f"profile: wall {wall_ms:.3f} ms per batch "
           f"({args.batch_size * 1e3 / wall_ms:.1f} img/s, profiler on)")

@@ -1,13 +1,14 @@
 """Where the training time goes on the card: two torch.profiler windows.
 
     python -m tfssd_torch.profile_train [--backbone vgg16] \
-        [--batch-size 32] [--iters 5]
+        [--batch-size 32] [--iters 5] [--bf16] [--remat]
 
 Runs the trainer's step (device-resident uint8 SyntheticDataset(seed=0)
 rows -> augment -> match/encode kernel -> forward -> loss -> backward ->
 Adam) on a configuration at full width with seeded weights
 (SSD300-MobileNetV2 unless --backbone says otherwise: vgg16 is
-SSD300-VGG16, vgg16_512 SSD512-VGG16), and prints per step: the wall time
+SSD300-VGG16, vgg16_512 SSD512-VGG16), in float32 unless --bf16 (and
+--remat) say otherwise, and prints per step: the wall time
 (host clock around synchronised work), the device busy time (the sum of
 the CUDA kernels' device time in the window) and the idle share, the
 device time by kind of kernel, the heaviest kernels, the match/encode
@@ -106,10 +107,18 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     p.add_argument("--iters", type=int, default=5)
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
+    p.add_argument("--bf16", action="store_true",
+                   help="bfloat16 backbone and heads (SSDConfig."
+                        "compute_dtype), float32 parameters")
+    p.add_argument("--remat", action="store_true",
+                   help="recompute the backbone's activations in the "
+                        "backward")
     args = p.parse_args(argv)
 
     device = resolve_device(args.device)
-    cfg = get_hyper_params(args.backbone)
+    cfg = get_hyper_params(
+        args.backbone, compute_dtype="bfloat16" if args.bf16 else "float32",
+        remat=args.remat)
     host, n = stage_arrays(
         SyntheticDataset(4 * args.batch_size, image_size=cfg.img_size,
                          seed=0), cfg.max_gt_boxes)
@@ -152,7 +161,8 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     name = (torch.cuda.get_device_name(device) if device.type == "cuda"
             else "cpu")
     print(f"profile: {args.backbone} train step, batch {args.batch_size}, "
-          f"{args.iters} steps, cudnn.benchmark="
+          f"{args.iters} steps, {cfg.compute_dtype}"
+          f"{', remat' if cfg.remat else ''}, cudnn.benchmark="
           f"{torch.backends.cudnn.benchmark}, device={name}")
     print(f"profile: wall {wall_ms:.3f} ms per step "
           f"({args.batch_size * 1e3 / wall_ms:.1f} img/s, profiler on)")

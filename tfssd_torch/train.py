@@ -7,7 +7,9 @@ Adam(1e-3, eps 1e-8) with the reference's step decay (1e-3 -> 1e-4 ->
 
   1. uint8 -> float / 255        2. augment (data/augment.py)
   3. x 2 - 1                     4. match (the match/encode kernel on CUDA)
-  5. forward in train mode       6. loss (ops/losses.py)
+  5. forward in train mode (in the config's compute dtype; the model's
+     outputs, the loss and Adam are float32)
+  6. loss (ops/losses.py)
   7. backward                    8. Adam at the schedule's rate
   9. BatchNorm running statistics (updated by the forward, as Flax's
      mutable batch_stats)

@@ -3,7 +3,7 @@ path: the synthetic dataset, staged on the device once).
 
     python -m tfssd_torch.trainer [--backbone vgg16] --dataset synthetic \\
         --epochs 2 --steps-per-epoch 3 --batch-size 32 [--device cpu] \\
-        [--resume]
+        [--bf16] [--remat] [--resume]
 
 Each of the JAX package's configurations at full width, 21 labels and 64
 gt rows per image: SSD300-MobileNetV2 (--backbone mobilenet_v2, the
@@ -15,12 +15,16 @@ runs every --val-every epochs and
 checkpoints keep the 3 best by validation loss under
 <model-dir>/ssd_<backbone>_torch. It runs on the card unless --device cpu
 is given, and raises when there is no card. It writes only under
---model-dir and --log-dir.
+--model-dir and --log-dir. --bf16 runs the backbone and heads in bfloat16
+(parameters, BatchNorm statistics, matching, the loss and Adam stay
+float32) and --remat recomputes the backbone's activations in the
+backward, as the JAX trainer's flags do; neither changes the directories,
+the sidecar or the checkpoint's keys, so --resume works across them.
 
 The index stream is the JAX trainer's: epoch e visits
 np.random.default_rng(seed * 10_000 + e) permutations of the training
 set. Not ported yet (ROADMAP.md): streamed feeding and VOC directories,
---port-h5, --bf16, --remat, --steps-per-call and --profile.
+--port-h5, --steps-per-call, --profile and --debug-nans.
 """
 
 from __future__ import annotations
@@ -93,6 +97,11 @@ def build_parser():
     p.add_argument("--no-augment", action="store_true")
     p.add_argument("--resume", action="store_true")
     p.add_argument("--init-lr", type=float, default=1e-3)
+    p.add_argument("--bf16", action="store_true",
+                   help="bfloat16 conv trunk and heads (float32 parameters)")
+    p.add_argument("--remat", action="store_true",
+                   help="rematerialize backbone activations "
+                        "(larger batches, ~30%% more fwd FLOPs)")
     p.add_argument("--ckpt-every", type=int, default=1,
                    help="epochs between checkpoint saves (the final epoch "
                         "always saves)")
@@ -112,9 +121,12 @@ def build_parser():
 def main(argv: Optional[Sequence[str]] = None) -> TrainRun:
     args = build_parser().parse_args(argv)
     dev = resolve_device(args.device)
-    cfg = get_hyper_params(args.backbone)
+    cfg = get_hyper_params(
+        args.backbone, compute_dtype="bfloat16" if args.bf16 else "float32",
+        remat=args.remat)
     print(f"backbone={cfg.backbone} img={cfg.img_size} "
-          f"anchors={cfg.total_anchors} device={dev}")
+          f"anchors={cfg.total_anchors} device={dev} "
+          f"compute_dtype={cfg.compute_dtype} remat={cfg.remat}")
     train_ds, val_ds = make_datasets(args.synthetic_size, cfg.img_size)
     if len(train_ds) < args.batch_size:
         raise SystemExit(
@@ -237,7 +249,9 @@ def main(argv: Optional[Sequence[str]] = None) -> TrainRun:
                       f"{args.batch_size}, val-every {args.val_every}, "
                       f"device-cached data, incl. validation + "
                       f"checkpointing (after the first epoch), "
-                      f"device={dev.type}"}))
+                      f"{cfg.compute_dtype}"
+                      + (", remat" if cfg.remat else "")
+                      + f", device={dev.type}"}))
     return run
 
 

@@ -5,7 +5,9 @@ At inference BN is the per-channel affine
     y = (conv(x) - mean) * gamma / sqrt(var + eps) + beta,
 so with s = gamma / sqrt(var + eps) it equals a conv with weight * s and
 bias beta - mean * s. Folding runs in float32 with eps 1e-3, as the JAX
-package folds, so both serve the same numbers.
+package folds, so both serve the same numbers. The folded model keeps the
+config's compute dtype: under bfloat16 the folded float32 weight and bias
+are cast at the conv, as any biased conv's (models/layers.py).
 """
 
 from __future__ import annotations

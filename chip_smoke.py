@@ -33,7 +33,8 @@ Phases, in order; any failure ends the run with a non-zero exit:
               printed; match/encode's inputs do not depend on the compute
               dtype, so the batches above are the bfloat16 train paths'
               too.
-  3. path   — serving: `python -m tfssd_torch.predict` (its main()) serves 32
+  3. path   — serving: `python -m tfssd_torch.predict --random-weights`
+              (its main(), device-cached) serves 32
               synthetic images at batch 8 through SSD300-MobileNetV2 at
               full width with seeded weights; the kernel's launch counter is
               set to 0 just before and read just after. The card's
@@ -90,7 +91,40 @@ Phases, in order; any failure ends the run with a non-zero exit:
               statistics (every count 1), the gradient within REMAT_GRAD
               of the plain step's (beside the plain step repeated), the
               peak device memory of each.
-  4. timing — serving img/s at batch 8 and 64 (device-resident uint8
+  4. trained — the committed checkpoint trained/ssd_mobilenet_v2/7680,
+              read without orbax (utils/checkpoint.py: OCDBT and zarr in
+              numpy, zstd through libzstd.so.1 by ctypes; the decoder and
+              the seconds printed), served by
+              `predict.main(["--limit", "128", "--batch-size", "8"])` with
+              every other flag at its default (mobilenet_v2, --model-dir
+              trained, the card, BatchNorm folded, device-cached) on
+              SyntheticDataset(128, seed=10_000); the keep launch counter
+              set to 0 just before and read just after must equal the 16
+              batches. The first 2 batches' (deltas, logits) held against
+              the port's CPU path on the same weights, every batch's
+              NMSResult against the CPU plain path (the gates of phase 3);
+              the mAP within TRAINED_MAP_GATE (1e-3) of TRAINED_MAP_JAX,
+              the JAX predictor's mAP on these images, which a CPU test
+              computes with JAX and asserts (past 1e-4, the first
+              detection that differs from the CPU path's is printed). The
+              same images with --device-cache off --workers 4: NMSResults
+              bit-equal to the cached run's; with --no-fold-bn: mAP within
+              FOLD_MAP_GATE (1e-4) of the folded run's. bfloat16 through
+              predict.load_model(<checkpoint directory>,
+              compute_dtype="bfloat16") + predict.serve: its mAP printed,
+              its detection agreement with float32 at least
+              BF16_AGREEMENT, its (deltas, logits) of every kept batch
+              within [BF16_MIN_VS_F32, BF16_TRAINED_VS_F32] of the float32
+              run's (a path that served float32 reads 0) and on batch 0
+              within BF16_TRAINED_VS_CPU of the port's bfloat16 CPU path
+              (the card's float32 outputs against that CPU path printed
+              as the control), launches == batches. The
+              keep kernel on the trained candidates of batches 8 and 64
+              (R = 160, 1,280): bit-equal, timed as in phase 5, with the
+              rows holding a valid candidate and the valid candidates per
+              row beside the seeded weights'. Serving img/s, device-resident
+              images, at batches 8, 64 and 256, and bfloat16 at 256.
+  5. timing — serving img/s at batch 8 and 64 (device-resident uint8
               images -> NMSResult), for each VGG16 config at batch 8 and
               the largest of 64 / 32 that fits; train ms/step, img/s and
               peak device memory of each config at its training batch
@@ -111,14 +145,20 @@ Phases, in order; any failure ends the run with a non-zero exit:
               of each config at its training batch, and SSD512 with
               remat; the card's name and power limit on every timing
               line.
-  5. the whole run's seconds, the `kernels` JSON line (match_encode's
+  6. the whole run's seconds, the `kernels` JSON line (match_encode's
      launches on each train path and each VGG16 config's train batch
      among its keys; the launches of both kernels on the bfloat16 paths
-     as launches_bf16_<config>), then the one-line JSON result, last.
+     as launches_bf16_<config>; nms_keep's on the trained paths as
+     launches_trained_mobilenet_v2 and launches_trained_bf16_mobilenet_v2,
+     and its timing on the trained candidates as <key>_trained_R<R>), then
+     the one-line JSON result, last.
 
 It exits non-zero without a result when no CUDA device is available, and
-in a directory that holds this script without the tfssd_torch package.
-It writes nothing outside build/.
+in a directory that holds this script without the tfssd_torch package
+(or without trained/ssd_mobilenet_v2, or without a zstd decoder). It runs
+from the checkout's root and writes nothing outside build/. The whole run
+takes ~200 s on an H100 (PERF.md §6); no earlier phase was cut to make room
+for phase 4.
 """
 
 from __future__ import annotations
@@ -126,6 +166,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import math
+import os
 import shutil
 import subprocess
 import sys
@@ -153,6 +194,7 @@ from tfssd_torch.ops.kernels.match_encode_cases import (match_cases,
                                                        random_gts)
 from tfssd_torch.ops.kernels.nms_keep_cases import keep_cases
 from tfssd_torch.profile_nms_keep import host_us
+from tfssd_torch.utils.convert import flatten_tree
 from tfssd_torch.train import (create_train_state, make_cached_train_step,
                                make_lr_schedule, make_train_step)
 
@@ -489,11 +531,22 @@ def serving_path(backbone: str, limit: int, checked: int, cpu_images: int):
         raise AssertionError(f"mAP is not finite ({backbone})")
 
     _, cpu_model = predict.load_model(backbone, None, SEED, "cpu")
+    check_outputs_on_cpu(backbone, run, cpu_model, checked, cpu_images)
+    return run, launches
+
+
+def check_outputs_on_cpu(label: str, run, cpu_model, checked: int,
+                         cpu_images: int) -> None:
+    """The first `checked` batches of a float32 serving run on the card:
+    their (deltas, logits) (the first `cpu_images` images) against
+    `cpu_model` on the same images (|card - cpu| <= 1e-3 + 1e-3 |cpu|),
+    and their NMSResult against the CPU plain path fed the card's decoded
+    boxes and scores (check_nms_on_cpu)."""
     anchors_t = torch.from_numpy(run.anchors).to(CARD)
     for b in range(checked):
         deltas, logits = run.outputs[b]
         if not (torch.isfinite(deltas).all() and torch.isfinite(logits).all()):
-            raise AssertionError(f"{backbone} batch {b}: non-finite model "
+            raise AssertionError(f"{label} batch {b}: non-finite model "
                                  f"outputs")
         with torch.no_grad():
             ref_d, ref_l = cpu_model(preprocess_images(
@@ -503,14 +556,13 @@ def serving_path(backbone: str, limit: int, checked: int, cpu_images: int):
             card = card[:cpu_images].cpu()
             err = (card - ref).abs()
             worst = float(err.max())
-            print(f"path: {backbone} batch {b} {name} {tuple(card.shape)} "
+            print(f"path: {label} batch {b} {name} {tuple(card.shape)} "
                   f"max|card-cpu|={worst:.3g} "
                   f"(|cpu| <= {float(ref.abs().max()):.3g})")
             if not bool((err <= 1e-3 + 1e-3 * ref.abs()).all()):
-                raise AssertionError(f"{backbone} batch {b} {name} differ: "
+                raise AssertionError(f"{label} batch {b} {name} differ: "
                                      f"{worst}")
-        check_nms_on_cpu(f"{backbone} batch {b}", run, b, anchors_t)
-    return run, launches
+        check_nms_on_cpu(f"{label} batch {b}", run, b, anchors_t)
 
 
 def check_nms_on_cpu(label: str, run, b: int, anchors_t) -> None:
@@ -638,6 +690,247 @@ def serving_path_bf16(backbone: str, limit: int, checked: int,
             raise AssertionError(f"{label} batch {b}: detection agreement "
                                  f"{agree} < {BF16_AGREEMENT}")
     return run, launches
+
+
+# The trained phase: the committed checkpoint, which predict.main serves
+# at its defaults (--model-dir trained, --backbone mobilenet_v2), on the
+# predictor's synthetic evaluation split.
+TRAINED_DIR = Path("trained") / "ssd_mobilenet_v2"
+TRAINED_IMAGES = 128
+# The JAX predictor's mAP with trained/ssd_mobilenet_v2/7680 on
+# SyntheticDataset(128, seed=10_000) at batch 8 (`predictor.py --dataset
+# synthetic --limit 128 --batch-size 8`), computed with JAX on the CPU and
+# asserted by tests/test_torch_predict_cli.py: the card is held to the
+# reference, not to itself.
+TRAINED_MAP_JAX = 0.8878397369672909
+# The card's mAP against TRAINED_MAP_JAX; past the CPU's bar (the port's
+# CPU path against the JAX predictor, tests/test_torch_predict_cli.py) the
+# first detection that differs from the CPU path's is printed.
+TRAINED_MAP_GATE = 1e-3
+TRAINED_MAP_CPU_BAR = 1e-4
+# --no-fold-bn against the folded run's mAP.
+FOLD_MAP_GATE = 1e-4
+# Gates of the bfloat16 serving path on the trained weights, from this
+# script's readings on an NVIDIA H100 80GB HBM3 at 700 W (PERF.md §6). The
+# card's bfloat16 (deltas, logits) against the port's bfloat16 CPU path on
+# the same images, max |card - cpu| over max |cpu| of each: read
+# 0.0043-0.0050, gate ~2x that. The control, the card's float32 outputs
+# against the same CPU path, reads 0.0154 and fails it; so would a card
+# that served float32. The same bfloat16 outputs of every kept batch
+# against the card's float32 run on the same images: read 0.0118-0.0186,
+# held within [BF16_MIN_VS_F32, BF16_TRAINED_VS_F32]; their detections by
+# BF16_AGREEMENT (read 0.9992).
+BF16_TRAINED_VS_CPU = 0.01
+BF16_TRAINED_VS_F32 = 2.0 ** -5
+
+
+def candidate_stats(scores: torch.Tensor, score_threshold: float) -> str:
+    """The keep kernel's input density: rows with a valid candidate, and
+    the mean valid candidates per row."""
+    valid = scores > score_threshold
+    r, k = scores.shape
+    return (f"rows with a valid candidate {int(valid.any(1).sum())} of {r}, "
+            f"valid candidates per row "
+            f"{float(valid.sum(1).float().mean()):.2f}"
+            f" of K={k}")
+
+
+def first_difference(got, want) -> str:
+    """The first detection (batch, image, row) where two lists of host
+    NMSResults differ: classes or valid unequal, or boxes or scores more
+    than 1e-6 apart."""
+    for b, (g, w) in enumerate(zip(got, want)):
+        for i in range(len(g.valid)):
+            if g.valid[i] != w.valid[i]:
+                return (f"batch {b} image {i}: valid {g.valid[i]} against "
+                        f"{w.valid[i]}")
+            for j in range(int(g.valid[i])):
+                if (g.classes[i, j] != w.classes[i, j]
+                        or abs(g.scores[i, j] - w.scores[i, j]) > 1e-6
+                        or np.abs(g.boxes[i, j] - w.boxes[i, j]).max() > 1e-6):
+                    return (f"batch {b} image {i} row {j}: class "
+                            f"{g.classes[i, j]} score {g.scores[i, j]:.7g} "
+                            f"box {g.boxes[i, j].tolist()} against class "
+                            f"{w.classes[i, j]} score {w.scores[i, j]:.7g} "
+                            f"box {w.boxes[i, j].tolist()}")
+    return "none"
+
+
+def _host_results(run) -> list:
+    return [nms.NMSResult(*(t.cpu().numpy() for t in res))
+            for res in run.results]
+
+
+def _concat(results) -> nms.NMSResult:
+    return nms.NMSResult(*(np.concatenate(parts)
+                           for parts in zip(*results)))
+
+
+def _max_rel(got: torch.Tensor, want: torch.Tensor) -> float:
+    """max |got - want| over max |want|, on the host in float32."""
+    got, want = got.cpu().float(), want.cpu().float()
+    return float((got - want).abs().max() / want.abs().max())
+
+
+def _serve_counted(argv) -> tuple:
+    """predict.main(argv) with the keep launch counter set to 0 just before
+    and read just after: (run, launches), launches == batches held."""
+    nms_keep.LAUNCHES = 0
+    run = predict.main(argv)
+    torch.cuda.synchronize()
+    launches = nms_keep.LAUNCHES
+    if launches != len(run.results):
+        raise AssertionError(f"nms_keep launched {launches} times for "
+                             f"{len(run.results)} batches ({argv})")
+    return run, launches
+
+
+def trained_path(seeded_cands) -> dict:
+    """The committed checkpoint on the card: read without orbax, served by
+    predict.main at its defaults, held against the CPU and the JAX
+    predictor's mAP; the streamed feed, --no-fold-bn and bfloat16 beside
+    it; the keep kernel on trained candidates; serving img/s."""
+    from tfssd_torch.utils import zstd
+    from tfssd_torch.utils.checkpoint import OrbaxCheckpoints
+
+    t0 = time.perf_counter()
+    ckpt = OrbaxCheckpoints(str(TRAINED_DIR))
+    step = ckpt.serving_step()
+    if step is None:
+        raise AssertionError(f"no checkpoint under {TRAINED_DIR}")
+    tree = ckpt.restore_weights(step)
+    seconds = time.perf_counter() - t0
+    leaves = list(flatten_tree(
+        {k: tree[k] for k in ("params", "batch_stats")}).values())
+    print(f"trained: {TRAINED_DIR}/{step} read without orbax through "
+          f"{zstd.describe()} in {seconds:.3f} s ({len(leaves)} arrays, "
+          f"{sum(a.nbytes for a in leaves) / 2**20:.2f} MiB)")
+
+    argv = ["--limit", str(TRAINED_IMAGES), "--batch-size", str(PATH_BATCH)]
+    run, launches = _serve_counted(argv)
+    n_batches = len(run.results)
+    gap = abs(run.mean_ap - TRAINED_MAP_JAX)
+    print(f"trained: predict.main({argv}) served {sum(run.num_valid)} "
+          f"images in {n_batches} batches (device-cached="
+          f"{run.device_cached}), nms_keep launches={launches}, mAP="
+          f"{run.mean_ap!r}; JAX predictor {TRAINED_MAP_JAX!r}, |diff| "
+          f"{gap:.3g} (gate {TRAINED_MAP_GATE})")
+    if not run.device_cached or not np.isfinite(run.mean_ap):
+        raise AssertionError("the trained run was not device-cached or its "
+                             "mAP is not finite")
+    _, cpu_model = predict.load_model("mobilenet_v2", tree, device="cpu")
+    check_outputs_on_cpu("mobilenet_v2 trained", run, cpu_model, 2,
+                         PATH_BATCH)
+    anchors_t = torch.from_numpy(run.anchors).to(CARD)
+    for b in range(2, n_batches):
+        check_nms_on_cpu(f"mobilenet_v2 trained batch {b}", run, b,
+                         anchors_t)
+    if gap > TRAINED_MAP_CPU_BAR:
+        cpu_run = predict.main(argv + ["--device", "cpu"])
+        print(f"trained: mAP beyond the CPU's bar {TRAINED_MAP_CPU_BAR}: "
+              f"CPU mAP {cpu_run.mean_ap!r}; first detection that differs "
+              f"card vs CPU: "
+              + first_difference(_host_results(run),
+                                 _host_results(cpu_run)))
+    if gap > TRAINED_MAP_GATE:
+        raise AssertionError(f"trained mAP {run.mean_ap} is {gap} from the "
+                             f"JAX predictor's {TRAINED_MAP_JAX}")
+
+    streamed, _ = _serve_counted(argv + ["--device-cache", "off",
+                                         "--workers", "4"])
+    equal = (len(streamed.results) == n_batches and all(
+        torch.equal(a, b) for ra, rb in zip(streamed.results, run.results)
+        for a, b in zip(ra, rb)))
+    print(f"trained: --device-cache off --workers 4: {n_batches} NMSResults "
+          f"bit-equal to the device-cached run's: {equal}; mAP "
+          f"{streamed.mean_ap!r}")
+    if not equal or streamed.device_cached:
+        raise AssertionError("the streamed run's NMSResults differ from the "
+                             "device-cached run's")
+
+    unfolded, _ = _serve_counted(argv + ["--no-fold-bn"])
+    fold_gap = abs(unfolded.mean_ap - run.mean_ap)
+    print(f"trained: --no-fold-bn mAP {unfolded.mean_ap!r}, |diff| from the "
+          f"folded run {fold_gap:.3g} (gate {FOLD_MAP_GATE})")
+    if unfolded.config.fold_bn or fold_gap > FOLD_MAP_GATE:
+        raise AssertionError(f"--no-fold-bn: fold_bn="
+                             f"{unfolded.config.fold_bn}, mAP {fold_gap} "
+                             f"from the folded run's")
+    del unfolded, streamed
+
+    bcfg, bmodel = predict.load_model("mobilenet_v2", str(TRAINED_DIR),
+                                      device="cuda", compute_dtype=BF16)
+    dataset = SyntheticDataset(predict.SYNTHETIC_EVAL_SIZE,
+                               image_size=bcfg.img_size,
+                               seed=predict.SYNTHETIC_EVAL_SEED)
+    nms_keep.LAUNCHES = 0
+    bf16_run = predict.serve(bmodel, bcfg, dataset, PATH_BATCH,
+                             TRAINED_IMAGES)
+    torch.cuda.synchronize()
+    launches_bf16 = nms_keep.LAUNCHES
+    if launches_bf16 != len(bf16_run.results):
+        raise AssertionError(f"nms_keep launched {launches_bf16} times for "
+                             f"{len(bf16_run.results)} bfloat16 batches")
+    agree = detection_agreement(_concat(_host_results(bf16_run)),
+                                _concat(_host_results(run)))
+    print(f"trained: bf16 mAP {bf16_run.mean_ap!r} (float32 "
+          f"{run.mean_ap!r}), nms_keep launches={launches_bf16}, detection "
+          f"agreement with float32 {agree:.4f} (gate {BF16_AGREEMENT})")
+    if not np.isfinite(bf16_run.mean_ap) or agree < BF16_AGREEMENT:
+        raise AssertionError(f"trained bf16: mAP {bf16_run.mean_ap}, "
+                             f"detection agreement {agree} < "
+                             f"{BF16_AGREEMENT}")
+    vs_f32 = [_max_rel(got, want)
+              for pair, f32 in zip(bf16_run.outputs, run.outputs)
+              for got, want in zip(pair, f32)]
+    print(f"trained: bf16 vs float32 on the card, max err / scale over "
+          f"{len(bf16_run.outputs)} batches' deltas and logits: "
+          f"{min(vs_f32):.4g}-{max(vs_f32):.4g} (gate [{BF16_MIN_VS_F32}, "
+          f"{BF16_TRAINED_VS_F32:.5g}])")
+    if not BF16_MIN_VS_F32 <= min(vs_f32) <= max(vs_f32) <= \
+            BF16_TRAINED_VS_F32:
+        raise AssertionError(f"trained bf16 outputs {min(vs_f32)}-"
+                             f"{max(vs_f32)} from float32, outside "
+                             f"[{BF16_MIN_VS_F32}, {BF16_TRAINED_VS_F32}]")
+    _, cpu_bf16 = predict.load_model("mobilenet_v2", tree, device="cpu",
+                                     compute_dtype=BF16)
+    with torch.no_grad():
+        cpu_out = cpu_bf16(preprocess_images(torch.from_numpy(
+            bf16_run.images[0])))
+    rels = {name: _max_rel(got, want) for name, got, want in zip(
+        ("deltas", "logits"), bf16_run.outputs[0], cpu_out)}
+    control = {name: _max_rel(got, want) for name, got, want in zip(
+        ("deltas", "logits"), run.outputs[0], cpu_out)}
+    print(f"trained: card bf16 vs the port's bf16 CPU path on batch 0, max "
+          f"err / scale: "
+          + ", ".join(f"{k} {v:.4g}" for k, v in rels.items())
+          + f" (gate {BF16_TRAINED_VS_CPU:.5g}); control, card float32 vs "
+          f"the same CPU path: "
+          + ", ".join(f"{k} {v:.4g}" for k, v in control.items()))
+    if not all(v <= BF16_TRAINED_VS_CPU for v in rels.values()):
+        raise AssertionError(f"trained bf16 outputs {rels} from the bf16 "
+                             f"CPU path > {BF16_TRAINED_VS_CPU}")
+    check_nms_on_cpu("mobilenet_v2 trained bf16 batch 0", bf16_run, 0,
+                     anchors_t)
+
+    thr = (run.config.nms_iou_threshold, run.config.nms_score_threshold)
+    keep_rows = {}
+    for bs in (PATH_BATCH, 64):
+        boxes, scores, _ = check_keep_on_candidates(
+            run.model, run.config, eval_images(run.config, bs),
+            "mobilenet_v2 trained")
+        r = scores.shape[0]
+        print(f"trained: candidates R={r}: "
+              f"{candidate_stats(scores, thr[1])}; seeded weights: "
+              f"{candidate_stats(seeded_cands[r][1], thr[1])}")
+        keep_rows[r] = time_keep(boxes, scores, thr, "mobilenet_v2 trained")
+    images = eval_images(run.config, HEADLINE_BATCH)
+    time_serving(run, images, ((PATH_BATCH, 30), (64, 10),
+                               (HEADLINE_BATCH, 5)), "mobilenet_v2 trained")
+    time_serving(bf16_run, images, ((HEADLINE_BATCH, 5),),
+                 "mobilenet_v2 trained bf16")
+    return dict(launches=launches, launches_bf16=launches_bf16,
+                keep_rows=keep_rows)
 
 
 def time_serving(run, images: np.ndarray, batches, label: str) -> dict:
@@ -1180,6 +1473,9 @@ def main() -> int:
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 1
     t_start = time.perf_counter()
+    # predict.main's defaults read trained/ relative to the working
+    # directory: run from the checkout's root
+    os.chdir(ROOT)
     device = CARD
     kind = torch.cuda.get_device_name(0)
     CARD_LINE = card_line()
@@ -1250,7 +1546,10 @@ def main() -> int:
     for name in REMAT_CONFIGS:
         remat_step_check(name)
 
-    section("4. timing")
+    section("4. trained")
+    trained_run = trained_path(cands)
+
+    section("5. timing")
     fits = time_serving(run, images[64], ((PATH_BATCH, 30), (64, 10)),
                         "mobilenet_v2")
     if set(fits) != {PATH_BATCH, 64}:
@@ -1295,7 +1594,7 @@ def main() -> int:
     full_row = time_match(*full_g_batch(ssd512, device), ssd512)
     print(card_line())
 
-    section("5. kernels")
+    section("6. kernels")
     print(f"chip_smoke: whole run {time.perf_counter() - t_start:.1f} s")
     r_path = PATH_BATCH * (cfg.total_labels - 1)
     path_row, big_row = rows[r_path], rows[max(rows)]
@@ -1317,6 +1616,10 @@ def main() -> int:
                       for key in timed})
     for name in TRAIN_CONFIGS:
         entry[f"launches_bf16_{name}"] = bf16_launches[name]
+    entry["launches_trained_mobilenet_v2"] = trained_run["launches"]
+    entry["launches_trained_bf16_mobilenet_v2"] = trained_run["launches_bf16"]
+    for r, row in trained_run["keep_rows"].items():
+        entry.update({f"{key}_trained_R{r}": row[key] for key in timed})
     b, g = m_labels.shape
     match_entry = {
         "name": "match_encode", "route": "cuda",

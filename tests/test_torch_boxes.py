@@ -1,7 +1,7 @@
 """Parity of the port's config and box geometry (tfssd_torch.config,
 tfssd_torch.ops.boxes) with the JAX package's: anchors bit-equal for all
 three backbones, IoU / encode / decode / clip within 1e-6 on the same
-seeded inputs."""
+seeded inputs, normalize_bboxes / denormalize_bboxes bit-equal."""
 
 import dataclasses
 
@@ -86,3 +86,17 @@ def test_encode_decode_round_trip():
         clipped.numpy(), np.asarray(jboxes.clip_boxes(jnp.asarray(want))),
         atol=ATOL)
     assert clipped.min() >= 0 and clipped.max() <= 1
+
+
+@pytest.mark.parametrize("height,width", [(200.0, 400.0), (375.0, 500.0)])
+def test_normalize_and_denormalize_bboxes_equal_jax(height, width):
+    rng = np.random.default_rng(3)
+    pixels = (rng.uniform(0, 1, (2, 7, 4)) * [height, width, height, width]
+              ).astype(np.float32)
+    norm = tboxes.normalize_bboxes(torch.from_numpy(pixels), height, width)
+    np.testing.assert_array_equal(norm.numpy(), np.asarray(
+        jboxes.normalize_bboxes(jnp.asarray(pixels), height, width)))
+    back = tboxes.denormalize_bboxes(norm, height, width)
+    np.testing.assert_array_equal(back.numpy(), np.asarray(
+        jboxes.denormalize_bboxes(jnp.asarray(norm.numpy()), height, width)))
+    np.testing.assert_allclose(back.numpy(), pixels, rtol=1e-6)

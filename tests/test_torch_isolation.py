@@ -1,11 +1,13 @@
 """Import and layout guard of the PyTorch/CUDA port.
 
-The machine with the card has PyTorch, numpy and the CUDA toolkit, but no
-jax, flax, optax, orbax, chex, PIL or tensorflow, and Triton is imported
-only inside a launching function. So every module of tfssd_torch and
-chip_smoke.py must import with all of those blocked, and their sources must
-not name the JAX package, jax, PyTorch's ninja-based extension loader or
-fast math (which would break the kernels' bit-exactness).
+The machine with the card has PyTorch, numpy, Pillow and the CUDA toolkit,
+but no jax, flax, optax, orbax, tensorstore, zarr, zstandard, chex or
+tensorflow, and Triton is imported only inside a launching function. So
+every module of tfssd_torch and chip_smoke.py must import with all of those
+blocked and PIL too (it is imported only where an image is decoded or
+drawn), and their sources must not name the JAX package, jax, PyTorch's
+ninja-based extension loader or fast math (which would break the kernels'
+bit-exactness).
 """
 
 import os
@@ -18,7 +20,7 @@ import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
 BLOCKED = ("jax", "flax", "optax", "orbax", "chex", "PIL", "tensorflow",
-           "triton")
+           "triton", "tensorstore", "zarr", "zstandard")
 
 _IMPORT_ALL = f"""
 import sys
@@ -33,7 +35,9 @@ for mod in pkgutil.walk_packages(tfssd_torch.__path__, "tfssd_torch."):
 for name in ("ops.matching", "ops.kernels.match_encode", "ops.losses",
              "data.augment", "data.loader", "train", "trainer",
              "profile_train", "utils.checkpoint", "utils.metrics",
-             "utils.io", "utils.convert", "models.vgg16"):
+             "utils.io", "utils.convert", "models.vgg16",
+             # the serving CLI's slice: the orbax reader, VOC and drawing
+             "utils.zstd", "utils.ocdbt", "data.voc", "utils.drawing"):
     assert "tfssd_torch." + name in sys.modules, name
 leaked = sorted(n for n in sys.modules
                 if n.split(".")[0] in {BLOCKED!r} and sys.modules[n] is not None)

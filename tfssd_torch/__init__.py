@@ -14,11 +14,16 @@ standard library only. Its structure mirrors the JAX package's file names:
                        extras, multibox head, SSD, decoder
   utils/fold_bn.py     BatchNorm folding for serving
   utils/convert.py     Flax variables / TrainState (numpy) -> torch
-  utils/checkpoint.py  torch.save checkpoints, best-3 retention, resume
-  utils/metrics.py     JSONL metrics log
-  utils/io.py          CLI arguments, model and log paths
-  data/                synthetic scenes, padding/batching, staging,
-                       augmentation on the device
+  utils/checkpoint.py  torch.save checkpoints, best-3 retention, resume;
+                       the JAX package's orbax checkpoints, read-only
+  utils/ocdbt.py       reader of orbax's OCDBT key-value store
+  utils/zstd.py        one zstd frame, libzstd by ctypes
+  utils/metrics.py     JSONL metrics log, step timer
+  utils/io.py          CLI arguments, model and log paths, --data-root
+  utils/drawing.py     detections drawn on images (PIL, lazily)
+  data/                synthetic scenes, VOC roots and image folders,
+                       padding/batching, staging, augmentation on the
+                       device
   train.py             train state, train/eval steps, LR schedule
   evaluate.py          VOC mAP
   predict.py           the serving CLI (python -m tfssd_torch.predict)

@@ -136,3 +136,19 @@ def decode(anchors: torch.Tensor, deltas: torch.Tensor,
 def clip_boxes(boxes: torch.Tensor, low: float = 0.0,
                high: float = 1.0) -> torch.Tensor:
     return torch.clamp(boxes, low, high)
+
+
+def normalize_bboxes(boxes: torch.Tensor, height: float,
+                     width: float) -> torch.Tensor:
+    """Pixel corner boxes -> normalized (divided by the image's size)."""
+    scale = torch.tensor([height, width, height, width], dtype=boxes.dtype,
+                         device=boxes.device)
+    return boxes / scale
+
+
+def denormalize_bboxes(boxes: torch.Tensor, height: float,
+                       width: float) -> torch.Tensor:
+    """Normalized corner boxes -> pixels (multiplied by the image's size)."""
+    scale = torch.tensor([height, width, height, width], dtype=boxes.dtype,
+                         device=boxes.device)
+    return boxes * scale

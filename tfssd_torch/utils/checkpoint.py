@@ -1,5 +1,6 @@
-"""Checkpoint and resume with torch.save (port of the JAX package's
-utils/checkpoint.py:CheckpointManager, which uses orbax).
+"""Checkpoints: the port's own, written with torch.save, and the JAX
+package's orbax checkpoints, read with numpy (port of the JAX package's
+utils/checkpoint.py:CheckpointManager).
 
 A checkpoint is <directory>/ckpt_<step>.pt, holding the step, the model's
 state_dict (parameters and BatchNorm running statistics), Adam's
@@ -10,6 +11,17 @@ them). The manager keeps the
 one ranks last) and restores the latest step it kept, so `--resume`
 continues training exactly: the reference's save_best_only, with the
 optimizer state kept too.
+
+`OrbaxCheckpoints` reads what the JAX package's CheckpointManager wrote
+(its --model-dir's ssd_<backbone>, e.g. the committed
+trained/ssd_mobilenet_v2/7680) without orbax, tensorstore or zarr: a step
+is a directory <step>/ holding metrics/metrics (JSON, {"val_loss": ...})
+and default/, whose _METADATA lists the tree's leaves and whose OCDBT
+store (utils/ocdbt.py) holds each leaf as a zarr v2 array: <name>/.zarray
+(dtype, shape, chunks, order, compressor, fill value) and one key per
+chunk (indices joined by the separator; "0" for a scalar), each a zstd
+frame (utils/zstd.py) or raw bytes. A chunk that is absent reads as the
+fill value (0 where it is null). <name> is the leaf's path joined by ".".
 """
 
 from __future__ import annotations
@@ -18,11 +30,14 @@ import json
 import math
 import os
 import re
-from typing import Dict, Optional
+from typing import Any, Dict, List, Optional
 
+import numpy as np
 import torch
 
 from tfssd_torch.train import TrainState
+from tfssd_torch.utils import zstd
+from tfssd_torch.utils.ocdbt import OcdbtStore
 
 _NAME = re.compile(r"^ckpt_(\d+)\.json$")
 
@@ -99,3 +114,125 @@ class CheckpointManager:
         state.optimizer.load_state_dict(ckpt["optimizer"])
         state.step = int(ckpt["step"])
         return state
+
+
+# The leaves a weights-only restore reads (never opt_state).
+WEIGHT_COLLECTIONS = ("step", "params", "batch_stats")
+# The empty containers orbax records as leaves with no array.
+_EMPTY = {"Dict": dict, "List": list, "Tuple": tuple, "None": lambda: None}
+
+
+class OrbaxCheckpoints:
+    """The JAX package's checkpoint directory, read-only: latest_step(),
+    best_step() and restore_weights(step), as its CheckpointManager
+    (best_fn = val_loss, best_mode = "min") gives them."""
+
+    def __init__(self, directory: str):
+        self.directory = os.path.abspath(directory)
+
+    def all_steps(self) -> List[int]:
+        """The steps on disk, ascending: directories named by an integer
+        (orbax's temporary directories are named otherwise)."""
+        if not os.path.isdir(self.directory):
+            return []
+        return sorted(int(n) for n in os.listdir(self.directory)
+                      if n.isdigit() and os.path.isdir(
+                          os.path.join(self.directory, n)))
+
+    def latest_step(self) -> Optional[int]:
+        steps = self.all_steps()
+        return steps[-1] if steps else None
+
+    def metrics(self, step: int) -> Optional[Dict[str, Any]]:
+        """The metrics saved with `step`, or None where it has none."""
+        path = os.path.join(self.directory, str(step), "metrics", "metrics")
+        if not os.path.exists(path):
+            return None
+        with open(path) as f:
+            return json.load(f)
+
+    def best_step(self) -> Optional[int]:
+        """The step of the lowest val_loss (of equal ones, the later), over
+        the steps saved with metrics; None where none has any, as orbax."""
+        scored = [(m["val_loss"], s) for s in self.all_steps()
+                  if (m := self.metrics(s)) is not None]
+        return min(scored, key=lambda vs: (vs[0], -vs[1]))[1] \
+            if scored else None
+
+    def serving_step(self) -> Optional[int]:
+        """The step the predictor serves: the best, else the latest."""
+        step = self.best_step()
+        return self.latest_step() if step is None else step
+
+    def restore_weights(self, step: Optional[int] = None) -> Dict[str, Any]:
+        """{'step', 'params', 'batch_stats'} of checkpoint `step` (default:
+        the latest) as numpy: the step a 0-d array, the others nested dicts
+        keyed by the Flax names. No optimizer state is read."""
+        if step is None:
+            step = self.latest_step()
+        if step is None:
+            raise FileNotFoundError(
+                f"no checkpoint found in {self.directory}")
+        item = os.path.join(self.directory, str(step), "default")
+        with open(os.path.join(item, "_METADATA")) as f:
+            meta = json.load(f)
+        if meta.get("use_zarr3"):
+            raise ValueError(f"{item}: zarr v3 arrays are not read")
+        store = OcdbtStore(item)
+        out: Dict[str, Any] = {}
+        for entry in meta["tree_metadata"].values():
+            path = [k["key"] for k in entry["key_metadata"]]
+            if path[0] not in WEIGHT_COLLECTIONS:
+                continue
+            meta_value = entry["value_metadata"]
+            if meta_value.get("skip_deserialize"):
+                # an empty container (VGG16's batch_stats), not an array
+                value = _EMPTY[meta_value["value_type"]]()
+            else:
+                value = read_zarr_array(store, ".".join(path))
+            if len(path) == 1:
+                out[path[0]] = value
+                continue
+            node = out
+            for key in path[:-1]:
+                node = node.setdefault(key, {})
+            node[path[-1]] = value
+        missing = set(WEIGHT_COLLECTIONS) - set(out)
+        if missing:
+            raise KeyError(f"{item}: no {sorted(missing)}")
+        return out
+
+
+_FILL = {"NaN": math.nan, "Infinity": math.inf, "-Infinity": -math.inf}
+
+
+def read_zarr_array(store: OcdbtStore, name: str) -> np.ndarray:
+    """The zarr v2 array `name` of `store`, assembled from its chunks."""
+    raw = store.read(f"{name}/.zarray")
+    if raw is None:
+        raise KeyError(f"no array {name!r} in the checkpoint")
+    meta = json.loads(raw)
+    if meta.get("zarr_format") != 2 or meta.get("filters"):
+        raise ValueError(f"{name}: not a plain zarr v2 array")
+    compressor = meta.get("compressor")
+    if compressor is not None and compressor.get("id") != "zstd":
+        raise ValueError(f"{name}: compressor {compressor}")
+    dtype = np.dtype(meta["dtype"])
+    shape, chunks = tuple(meta["shape"]), tuple(meta["chunks"])
+    fill = meta.get("fill_value")
+    out = np.full(shape, 0 if fill is None else _FILL.get(fill, fill), dtype)
+    sep = meta.get("dimension_separator", ".")
+    grid = [-(-s // c) for s, c in zip(shape, chunks)]
+    for index in np.ndindex(*grid):
+        raw = store.read(f"{name}/{sep.join(map(str, index)) or '0'}")
+        if raw is None:
+            continue
+        if compressor is not None:
+            raw = zstd.decompress(raw)
+        chunk = np.frombuffer(raw, dtype).reshape(chunks,
+                                                  order=meta["order"])
+        region = tuple(slice(i * c, min((i + 1) * c, s))
+                       for i, c, s in zip(index, chunks, shape))
+        out[region] = chunk[tuple(slice(0, r.stop - r.start)
+                                  for r in region)]
+    return out

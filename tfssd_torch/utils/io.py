@@ -4,7 +4,7 @@ utils/io.py; reference: utils/io_utils.py).
 The port's checkpoints go to <model-dir>/ssd_<backbone>_torch, never to
 the JAX package's <model-dir>/ssd_<backbone>: the repository's trained/
 holds the JAX package's committed checkpoint there, which the port only
-reads.
+reads (get_jax_model_path; the predictor's default weights).
 """
 
 from __future__ import annotations
@@ -18,21 +18,44 @@ import os
 VALID_BACKBONES = ("mobilenet_v2", "vgg16", "vgg16_512")
 
 
-def handle_args(description: str = "tfssd_torch") -> argparse.ArgumentParser:
+def handle_args(description: str = "tfssd_torch",
+                datasets=("synthetic",)) -> argparse.ArgumentParser:
     """Base argparse surface of the port's CLIs (callers add their own
-    flags)."""
+    flags). `datasets` are the --dataset choices; with "voc" among them
+    comes the repeatable --data-root ROOT[:SPLIT]."""
     p = argparse.ArgumentParser(description=description)
     p.add_argument("--backbone", default="mobilenet_v2",
                    choices=VALID_BACKBONES,
                    help="which SSD configuration: mobilenet_v2 "
                         "(SSD300), vgg16 (SSD300) or vgg16_512 (SSD512)")
     p.add_argument("--batch-size", type=int, default=32)
-    p.add_argument("--dataset", default="synthetic", choices=("synthetic",),
-                   help="VOC directories are not ported yet")
+    p.add_argument("--dataset", default="synthetic", choices=datasets)
+    if "voc" in datasets:
+        p.add_argument("--data-root", action="append", default=None,
+                       help="VOCdevkit/VOC2007-style directory, optionally "
+                            "with a split as ROOT:SPLIT; repeatable, the "
+                            "roots read one after another")
     p.add_argument("--model-dir", default="trained")
     p.add_argument("--log-dir", default="logs")
     p.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
     return p
+
+
+def parse_data_root(spec: str, default_split: str):
+    """A --data-root spec "ROOT[:SPLIT]" -> (root, split). The part after
+    the last colon is a split only when it has no path separator, so a
+    plain path keeps working."""
+    root, sep, split = spec.rpartition(":")
+    if sep and split and os.sep not in split and root:
+        return root, split
+    return spec, default_split
+
+
+def get_jax_model_path(backbone: str, model_dir: str = "trained") -> str:
+    """The JAX package's checkpoint directory for a backbone,
+    <model_dir>/ssd_<backbone> (read by the predictor; nothing is
+    created)."""
+    return os.path.join(model_dir, f"ssd_{backbone}")
 
 
 def get_model_path(backbone: str, model_dir: str = "trained") -> str:

@@ -124,6 +124,35 @@ Phases, in order; any failure ends the run with a non-zero exit:
               rows holding a valid candidate and the valid candidates per
               row beside the seeded weights'. Serving img/s, device-resident
               images, at batches 8, 64 and 256, and bfloat16 at 256.
+  4b. voc   — the trainer CLI on VOC directories: drill trees written by
+              tfssd_torch.make_voc_drill under build/ (256 trainval + 64
+              test images at 300 for mobilenet_v2 and vgg16, 128 + 32 at
+              512 for vgg16_512); for each config at its training batch of
+              phase 3, `trainer.main(["--dataset", "voc", "--data-root",
+              <drill>, "--val-split", "test", "--epochs", "2", ...])`
+              (a) streamed (--device-cache off --workers 8
+              --prefetch-depth 4), (b) device-cached, twice, (c) streamed
+              with --steps-per-call 2, and for mobilenet_v2 also
+              device-cached with --steps-per-call 2, all with cuDNN's
+              deterministic algorithms (its default heuristic picks some
+              whose sums vary from run to run, so two default runs part
+              at step 0's gradient); then (b) with cuDNN's default
+              algorithms, as users train, step 0's loss metrics bit-equal
+              to (b)'s and its distance printed. Each run's
+              match/encode launches, counted from 0, must equal its train
+              steps + validation batches; its metrics finite; step 0's
+              metrics bit-equal across the runs; every later metric and
+              the final validation loss of each run within the card's
+              run-to-run floor, the distance between (b)'s two runs
+              (printed beside them). Each run prints its e2e img/s,
+              seconds per epoch, the share of steps that waited on the
+              prefetch queue and device_memory_stats()'s peak beside the
+              card's name and power limit. --profile on mobilenet_v2's (a):
+              the trace names match_encode_kernel and holds a
+              train_step#<step> range for each step of epoch 0 and none
+              of epoch 1. --debug-nans on a run whose --init-lr diverges:
+              FloatingPointError, and its --profile trace still written;
+              the same run without the flag printed.
   5. timing — serving img/s at batch 8 and 64 (device-resident uint8
               images -> NMSResult), for each VGG16 config at batch 8 and
               the largest of 64 / 32 that fits; train ms/step, img/s and
@@ -150,15 +179,17 @@ Phases, in order; any failure ends the run with a non-zero exit:
      among its keys; the launches of both kernels on the bfloat16 paths
      as launches_bf16_<config>; nms_keep's on the trained paths as
      launches_trained_mobilenet_v2 and launches_trained_bf16_mobilenet_v2,
-     and its timing on the trained candidates as <key>_trained_R<R>), then
+     and its timing on the trained candidates as <key>_trained_R<R>;
+     match_encode's on the VOC runs as
+     launches_voc_<config>_{streamed,cached,spc2[,cached_spc2]}), then
      the one-line JSON result, last.
 
 It exits non-zero without a result when no CUDA device is available, and
 in a directory that holds this script without the tfssd_torch package
 (or without trained/ssd_mobilenet_v2, or without a zstd decoder). It runs
 from the checkout's root and writes nothing outside build/. The whole run
-takes ~200 s on an H100 (PERF.md §6); no earlier phase was cut to make room
-for phase 4.
+takes ~280-320 s on an H100, phase 4b ~81 s of it (PERF.md §6); no earlier
+phase was cut to make room for phases 4 and 4b.
 """
 
 from __future__ import annotations
@@ -183,6 +214,7 @@ from tfssd_torch.data.augment import augment_batch
 from tfssd_torch.data.loader import stage_arrays
 from tfssd_torch.data.synthetic import SyntheticDataset
 from tfssd_torch.evaluate import detection_agreement
+from tfssd_torch.make_voc_drill import make_drill
 from tfssd_torch.models.decoder import (decode_boxes_and_scores,
                                         decode_predictions, make_predict_fn,
                                         preprocess_images)
@@ -194,6 +226,7 @@ from tfssd_torch.ops.kernels.match_encode_cases import (match_cases,
                                                        random_gts)
 from tfssd_torch.ops.kernels.nms_keep_cases import keep_cases
 from tfssd_torch.profile_nms_keep import host_us
+from tfssd_torch.utils import profiling
 from tfssd_torch.utils.convert import flatten_tree
 from tfssd_torch.train import (create_train_state, make_cached_train_step,
                                make_lr_schedule, make_train_step)
@@ -933,6 +966,218 @@ def trained_path(seeded_cands) -> dict:
                 keep_rows=keep_rows)
 
 
+# The VOC phase: the trainer CLI on drill trees (tfssd_torch.make_voc_drill)
+# through both feeds and --steps-per-call 2, at each config's training
+# batch. (trainval, test) images of each image size.
+VOC_DRILL = {300: (256, 64), 512: (128, 32)}
+VOC_EPOCHS = 2
+# MobileNetV2's diverging run for --debug-nans: Adam moves every weight by
+# ~lr in step 0, so step 1's forward overflows.
+NAN_LR = "1e30"
+# The match/encode kernel's name in a profiler trace (csrc/match_encode.cu).
+MATCH_KERNEL = "match_encode_kernel"
+
+
+def make_voc_drills() -> dict:
+    """{image size: VOC root} of fresh drill trees under build/."""
+    roots = {}
+    for size, (train, test) in VOC_DRILL.items():
+        out = ROOT / "build" / "chip_smoke_voc" / f"drill{size}"
+        if out.exists():
+            shutil.rmtree(out)
+        t0 = time.perf_counter()
+        roots[size] = make_drill(str(out), train, test, size)
+        print(f"voc: drill tree of {train} + {test} images at {size} "
+              f"written in {time.perf_counter() - t0:.2f} s")
+    return roots
+
+
+@dataclasses.dataclass
+class VocRun:
+    """What the VOC phase keeps of one trainer run (not its state, whose
+    device memory would count in every later peak): every step's metrics,
+    the validation losses, the steps, the log directory and steps per
+    epoch, and the match/encode launches."""
+
+    step_metrics: list
+    val_losses: dict
+    steps_run: int
+    log_path: str
+    steps_per_epoch: int
+    launches: int
+
+
+def voc_run(name: str, batch: int, root: str, label: str,
+            flags: Sequence[str] = ()) -> VocRun:
+    """trainer.main on the drill tree `root` with `flags`; the match/encode
+    launches (counted from 0) must equal its train steps and validation
+    batches, its metrics finite. Prints its readings."""
+    out = ROOT / "build" / "chip_smoke_voc" / name / label
+    if out.exists():
+        shutil.rmtree(out)
+    argv = ["--backbone", name, "--device", "cuda", "--batch-size",
+            str(batch), "--dataset", "voc", "--data-root", root,
+            "--val-split", "test", "--epochs", str(VOC_EPOCHS),
+            "--seed", str(SEED), "--model-dir", str(out / "model"),
+            "--log-dir", str(out / "logs"), *flags]
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    match_encode.LAUNCHES = 0
+    run = trainer.main(argv)
+    torch.cuda.synchronize()
+    launches = match_encode.LAUNCHES
+    peak = profiling.device_memory_stats()["cuda:0"]["peak_bytes_in_use"]
+    want = run.steps_run + run.val_batches
+    wait = run.prefetch
+    wait_text = (f"prefetch waits {wait.waited} of {wait.items} calls "
+                 f"(share {wait.wait_share}, {wait.wait_s:.3f} s)"
+                 if not run.device_cache else "device-cached")
+    print(f"voc: {name} {label} ({' '.join(flags)}; cuDNN deterministic "
+          f"{torch.backends.cudnn.deterministic}) batch {batch}: "
+          f"{run.steps_run} steps + {run.val_batches} validation batches, "
+          f"match_encode launches={launches}, e2e img/s="
+          f"{run.e2e_img_per_s}, seconds per epoch {run.epoch_seconds}, "
+          f"{wait_text}, peak device memory {peak / 2**30:.2f} GiB "
+          f"(device_memory_stats; {held / 2**30:.2f} GiB held before), "
+          f"val_losses={run.val_losses} ({CARD_LINE})")
+    if launches != want:
+        raise AssertionError(f"match_encode launched {launches} times for "
+                             f"{want} train steps + val batches ({name} "
+                             f"{label})")
+    values = [v for m in run.step_metrics for v in m.values()] + list(
+        run.val_losses.values())
+    if not all(math.isfinite(v) for v in values):
+        raise AssertionError(f"non-finite metric ({name} {label})")
+    return VocRun(run.step_metrics, run.val_losses, run.steps_run,
+                  run.log_path, run.steps_per_epoch, launches)
+
+
+def run_distance(got, want) -> dict:
+    """Per metric, the largest relative difference over the steps of two
+    runs, and the final validation loss's."""
+    keys = want.step_metrics[0].keys()
+    d = {k: max(abs(g[k] - w[k]) / max(abs(w[k]), 1e-30)
+                for g, w in zip(got.step_metrics, want.step_metrics))
+         for k in keys}
+    last = max(want.val_losses)
+    d["val_loss"] = (abs(got.val_losses[last] - want.val_losses[last])
+                     / abs(want.val_losses[last]))
+    return d
+
+
+def voc_config(name: str, batch: int, root: str) -> dict:
+    """The feeds of one config on its drill tree. With cuDNN's
+    deterministic algorithms (its default heuristic picks some that
+    accumulate in a varying order, so two default runs part from step 0's
+    gradient on): (a) streamed with 8 decode threads 4 batches ahead, (b)
+    device-cached, twice (the card's run-to-run floor), (c) streamed at
+    --steps-per-call 2, for MobileNetV2 also (d) device-cached at 2. Step
+    0's metrics must be bit-equal across them, every later metric and the
+    final validation loss of each within the floor. Then (b) once more
+    with cuDNN's default algorithms, as users train: step 0's loss metrics
+    bit-equal to (b)'s, its distance from (b) printed."""
+    labels = {
+        "streamed": ("--device-cache", "off", "--workers", "8",
+                     "--prefetch-depth", "4"),
+        "cached": ("--device-cache", "on"),
+        "cached_again": ("--device-cache", "on"),
+        "spc2": ("--device-cache", "off", "--steps-per-call", "2"),
+    }
+    if name == "mobilenet_v2":
+        labels["cached_spc2"] = ("--device-cache", "on", "--steps-per-call",
+                                 "2")
+    default_algorithms = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        runs = {label: voc_run(name, batch, root, label, flags)
+                for label, flags in labels.items()}
+    finally:
+        torch.backends.cudnn.deterministic = default_algorithms
+    runs["cached_default"] = voc_run(name, batch, root, "cached_default",
+                                     labels["cached"])
+    base = runs["cached"]
+    if len({r.steps_run for r in runs.values()}) != 1:
+        raise AssertionError(f"{name}: the feeds ran different step counts")
+    floor = run_distance(runs["cached_again"], base)
+    print(f"voc: {name} floor (device-cached twice, cuDNN deterministic): "
+          f"{floor} ({CARD_LINE})")
+    for label, run in runs.items():
+        first, want = run.step_metrics[0], base.step_metrics[0]
+        if label == "cached_default":
+            # the forward is deterministic; the gradient need not be
+            first = {k: v for k, v in first.items() if k != "grad_norm"}
+            want = {k: v for k, v in want.items() if k != "grad_norm"}
+        if first != want:
+            raise AssertionError(f"{name} {label}: step 0 metrics {first} "
+                                 f"!= device-cached {want}")
+        if label in ("cached", "cached_again"):
+            continue
+        d = run_distance(run, base)
+        if label == "cached_default":
+            print(f"voc: {name} cuDNN's default algorithms against "
+                  f"deterministic ones, device-cached: {d}; step 0's "
+                  f"grad_norm {run.step_metrics[0]['grad_norm']!r} / "
+                  f"{base.step_metrics[0]['grad_norm']!r}")
+            continue
+        over = [k for k in d if d[k] > floor[k]]
+        print(f"voc: {name} {label} against device-cached: {d}; beyond "
+              f"the floor: {over or 'none'}")
+        if over:
+            raise AssertionError(f"{name} {label}: {over} beyond the "
+                                 f"card's run-to-run floor")
+    return runs
+
+
+def voc_profile_and_nans(batch: int, root: str) -> None:
+    """--profile on MobileNetV2's streamed run: the trace names the
+    match/encode kernel and a train_step range for each step of epoch 0.
+    --debug-nans on a diverging run raises FloatingPointError and, with
+    --profile, still writes its trace; the same run without the flag is
+    printed."""
+    run = voc_run("mobilenet_v2", batch, root, "profile", (
+        "--device-cache", "off", "--profile"))
+    trace = (Path(run.log_path) / profiling.TRACE_FILE).read_text()
+    steps = run.steps_per_epoch
+    missing = [k for k in range(steps) if f'"train_step#{k}"' not in trace]
+    if MATCH_KERNEL not in trace or missing:
+        raise AssertionError(f"profile trace: match_encode_kernel "
+                             f"{MATCH_KERNEL in trace}, steps "
+                             f"without a train_step range {missing}")
+    if f'"train_step#{steps}"' in trace:
+        raise AssertionError("the trace holds a step of epoch 1")
+    print(f"voc: --profile trace {len(trace) / 2**20:.1f} MiB names "
+          f"{MATCH_KERNEL} and train_step#0..{steps - 1}")
+    out = ROOT / "build" / "chip_smoke_voc" / "nans"
+    if out.exists():
+        shutil.rmtree(out)
+    argv = ["--device", "cuda", "--batch-size", str(batch), "--dataset",
+            "voc", "--data-root", root, "--val-split", "test", "--epochs",
+            "1", "--steps-per-epoch", "2", "--log-every", "1",
+            "--init-lr", NAN_LR, "--device-cache", "off",
+            "--model-dir", str(out / "model")]
+    match_encode.LAUNCHES = 0
+    try:
+        trainer.main(argv + ["--debug-nans", "--profile", "--log-dir",
+                             str(out / "logs_flag")])
+    except FloatingPointError as e:
+        raised = str(e)
+    else:
+        raise AssertionError("--debug-nans did not raise on a diverging run")
+    traces = list((out / "logs_flag").rglob(profiling.TRACE_FILE))
+    if len(traces) != 1 or MATCH_KERNEL not in traces[0].read_text():
+        raise AssertionError("--debug-nans --profile wrote no trace of the "
+                             "kernel")
+    print(f"voc: --debug-nans raised FloatingPointError: {raised}; its "
+          f"trace was written ({match_encode.LAUNCHES} match_encode "
+          f"launches)")
+    losses = trainer.main(argv + ["--log-dir", str(out / "logs_plain")])
+    print(f"voc: without --debug-nans the same run ends: losses "
+          f"{[m['loss'] for m in losses.step_metrics]}, val_losses "
+          f"{losses.val_losses}")
+    del losses
+
+
 def time_serving(run, images: np.ndarray, batches, label: str) -> dict:
     """img/s of uint8 images on the card -> NMSResult at each batch size
     of `batches`; a batch that does not fit in memory is reported and
@@ -1549,6 +1794,15 @@ def main() -> int:
     section("4. trained")
     trained_run = trained_path(cands)
 
+    section("4b. voc")
+    t_voc = time.perf_counter()
+    roots = make_voc_drills()
+    voc = {name: voc_config(name, trained[name][0],
+                            roots[get_hyper_params(name).img_size])
+           for name in TRAIN_CONFIGS}
+    voc_profile_and_nans(trained["mobilenet_v2"][0], roots[300])
+    print(f"voc: phase took {time.perf_counter() - t_voc:.1f} s")
+
     section("5. timing")
     fits = time_serving(run, images[64], ((PATH_BATCH, 30), (64, 10)),
                         "mobilenet_v2")
@@ -1643,6 +1897,9 @@ def main() -> int:
             f"launches_bf16_{name}"] = trained_bf16[name]
     match_entry["train_batch_bf16_remat_vgg16_512"], match_entry[
         "launches_bf16_remat_vgg16_512"] = trained_remat
+    for name, runs in voc.items():
+        for label, reading in runs.items():
+            match_entry[f"launches_voc_{name}_{label}"] = reading.launches
     print(json.dumps({"kernels": [entry, match_entry]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

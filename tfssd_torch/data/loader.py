@@ -1,26 +1,35 @@
 """Host-side batching: examples -> padded numpy batches (port of the JAX
 package's data/loader.py: ConcatDataset, TakeDataset, pad_gt,
-batch_examples, _collate, stage_arrays, prefetch).
+batch_examples, _collate, stage_arrays, stack_batches, prefetch).
 
 Ground truth is padded to the static `max_gt_boxes` rows with label 0;
 a short final batch is padded with zero images when not dropped. Images
 stay uint8 until the device (models/decoder.py:preprocess_images).
-`stage_arrays` decodes a whole dataset into contiguous arrays once, for
-the trainer's and the predictor's device-resident caches. Decoding runs
-in `workers` threads where asked (PIL releases the interpreter lock while
-it decodes a JPEG), in the dataset's order.
+`batch_examples` shuffles a random-access dataset by
+np.random.default_rng(shuffle_seed).permutation(len(dataset)), the order
+the trainer's device cache gathers too, so both feeds see the same
+batches. `stage_arrays` decodes a whole dataset into contiguous arrays
+once, for the trainer's and the predictor's device-resident caches.
+Decoding runs in `workers` threads where asked (PIL releases the
+interpreter lock while it decodes a JPEG), in the dataset's order.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import itertools
 import threading
+import time
 from collections import deque
 from concurrent.futures import ThreadPoolExecutor
 from queue import Empty, Full, Queue
 from typing import Dict, Iterable, Iterator, Optional, Sequence
 
 import numpy as np
+
+# The JAX trainer's and predictor's rule for --device-cache auto: stage the
+# data on the device when its uint8 images take at most this many bytes.
+DEVICE_CACHE_BYTES = 6e9
 
 
 def _parallel_examples(dataset, order: Sequence[int],
@@ -104,46 +113,73 @@ def pad_gt(boxes: np.ndarray, labels: np.ndarray, max_gt: int):
 
 
 def batch_examples(dataset: Iterable[Dict], batch_size: int, max_gt: int,
-                   *, drop_remainder: bool = True, workers: int = 1
+                   *, repeat: bool = False,
+                   shuffle_seed: Optional[int] = None,
+                   drop_remainder: bool = True, workers: int = 1
                    ) -> Iterator[Dict[str, np.ndarray]]:
     """Yield batches {'image' (B,S,S,3) uint8, 'boxes' (B,G,4) float32,
-    'labels' (B,G) int32, 'difficult' (B,G) bool, 'ids', 'num_valid'} in
-    dataset order, one pass; `workers` > 1 decodes in that many threads
-    and needs a random-access dataset."""
-    if workers > 1:
-        if not hasattr(dataset, "example"):
-            raise ValueError("workers > 1 needs a random-access dataset "
-                             "(with .example); got a plain iterable")
-        dataset = _parallel_examples(dataset, range(len(dataset)), workers)
-    buf = []
-    for ex in dataset:
-        buf.append(ex)
-        if len(buf) == batch_size:
-            yield _collate(buf, max_gt)
-            buf = []
-    if buf and not drop_remainder:
-        yield _collate(buf, max_gt, pad_to=batch_size)
+    'labels' (B,G) int32, 'difficult' (B,G) bool, 'ids', 'num_valid'}.
+    The order is the dataset's, or with `shuffle_seed` the permutation
+    np.random.default_rng(shuffle_seed).permutation(len(dataset)) (each
+    pass of `repeat` draws the generator's next one). `workers` > 1
+    decodes in that many threads. A seed or workers need a random-access
+    dataset (`__len__` and `example(i)`); a plain iterable raises
+    ValueError rather than batch in file order unnoticed."""
+    rng = (np.random.default_rng(shuffle_seed)
+           if shuffle_seed is not None else None)
+    random_access = hasattr(dataset, "example")
+    if not random_access and (shuffle_seed is not None or workers > 1):
+        raise ValueError(
+            "shuffle_seed/workers require a random-access dataset "
+            "(with .example); got a plain iterable")
+
+    def one_pass():
+        if not random_access:
+            return iter(dataset)
+        order = (rng.permutation(len(dataset)) if rng is not None
+                 else np.arange(len(dataset)))
+        if workers > 1:
+            return _parallel_examples(dataset, order, workers)
+        return (dataset.example(int(i)) for i in order)
+
+    for _ in (itertools.count() if repeat else range(1)):
+        buf = []
+        for ex in one_pass():
+            buf.append(ex)
+            if len(buf) == batch_size:
+                yield _collate(buf, max_gt)
+                buf = []
+        if buf and not drop_remainder:
+            yield _collate(buf, max_gt, pad_to=batch_size)
+
+
+def _allocate(total: int, image: np.ndarray, max_gt: int) -> Dict:
+    """Zeroed arrays for `total` examples shaped like `image`: zero rows
+    are the padding (zero images, all-background gts)."""
+    return {"image": np.zeros((total,) + image.shape, image.dtype),
+            "boxes": np.zeros((total, max_gt, 4), np.float32),
+            "labels": np.zeros((total, max_gt), np.int32),
+            "difficult": np.zeros((total, max_gt), bool), "ids": []}
+
+
+def _put_example(out: Dict, i: int, ex: Dict, max_gt: int) -> None:
+    """Example `ex` into row i of _allocate's arrays, its gts padded or
+    cut to max_gt rows."""
+    out["image"][i] = ex["image"]
+    out["boxes"][i], out["labels"][i] = pad_gt(ex["boxes"], ex["labels"],
+                                               max_gt)
+    d = np.asarray(ex.get("difficult", np.zeros(len(ex["labels"]), bool)))
+    g = min(len(d), max_gt)
+    out["difficult"][i, :g] = d[:g]
+    out["ids"].append(ex.get("id", str(i)))
 
 
 def _collate(examples, max_gt: int, pad_to: Optional[int] = None):
-    n = len(examples)
-    total = pad_to or n
-    s = examples[0]["image"].shape[0]
-    images = np.zeros((total, s, s, 3), examples[0]["image"].dtype)
-    boxes = np.zeros((total, max_gt, 4), np.float32)
-    labels = np.zeros((total, max_gt), np.int32)
-    difficult = np.zeros((total, max_gt), bool)
-    ids = []
+    out = _allocate(pad_to or len(examples), examples[0]["image"], max_gt)
     for i, ex in enumerate(examples):
-        images[i] = ex["image"]
-        boxes[i], labels[i] = pad_gt(ex["boxes"], ex["labels"], max_gt)
-        d = np.asarray(ex.get("difficult",
-                              np.zeros(len(ex["labels"]), bool)))
-        g = min(len(d), max_gt)
-        difficult[i, :g] = d[:g]
-        ids.append(ex.get("id", str(i)))
-    return {"image": images, "boxes": boxes, "labels": labels,
-            "difficult": difficult, "ids": ids, "num_valid": n}
+        _put_example(out, i, ex, max_gt)
+    out["num_valid"] = len(examples)
+    return out
 
 
 def stage_arrays(dataset, max_gt: int, *, workers: int = 8,
@@ -152,23 +188,62 @@ def stage_arrays(dataset, max_gt: int, *, workers: int = 8,
     `workers` threads: ({'image' (N,S,S,3) uint8, 'boxes' (N,G,4),
     'labels' (N,G), 'difficult', 'ids'}, n_real). `pad_to_multiple`
     appends all-zero rows (label 0, so zero loss) up to a multiple; n_real
-    counts the rows before padding."""
+    counts the rows before padding. Each example is written into arrays
+    allocated once from the first one's shape, so the host holds the
+    dataset once, not a list of examples beside a collated copy."""
     n = len(dataset)
     total = n
     if pad_to_multiple:
         total = -(-n // pad_to_multiple) * pad_to_multiple
-    examples = list(_parallel_examples(dataset, range(n), workers)
-                    if workers > 1 else
-                    (dataset.example(i) for i in range(n)))
-    batch = _collate(examples, max_gt, pad_to=total)
-    del batch["num_valid"]
-    return batch, n
+    first = dataset.example(0)
+    out = _allocate(total, first["image"], max_gt)
+    # the shape probe is row 0, not decoded twice
+    rest = (_parallel_examples(dataset, range(1, n), workers)
+            if workers > 1 else (dataset.example(i) for i in range(1, n)))
+    for i, ex in enumerate(itertools.chain([first], rest)):
+        _put_example(out, i, ex, max_gt)
+    return out, n
 
 
-def prefetch(iterator: Iterator, depth: int = 2) -> Iterator:
+def stack_batches(batches: Iterable[Dict], k: int) -> Iterator[Dict]:
+    """Super-batches of k consecutive batches, for
+    train.make_multi_train_step: the arrays gain a leading (k,) axis,
+    `num_valid` is the sum and `ids` the concatenation. A trailing group
+    of fewer than k batches is dropped (the trainer floors its steps per
+    epoch to a multiple of k)."""
+    buf = []
+    for b in batches:
+        buf.append(b)
+        if len(buf) == k:
+            out = {key: np.stack([c[key] for c in buf])
+                   for key in ("image", "boxes", "labels", "difficult")}
+            out["ids"] = [i for c in buf for i in c["ids"]]
+            out["num_valid"] = sum(c["num_valid"] for c in buf)
+            yield out
+            buf = []
+
+
+@dataclasses.dataclass
+class PrefetchStats:
+    """What a prefetch consumer saw: the items it took, how many of them
+    it had to wait for (the queue was empty when it asked) and the
+    seconds it spent waiting."""
+
+    items: int = 0
+    waited: int = 0
+    wait_s: float = 0.0
+
+    @property
+    def wait_share(self) -> Optional[float]:
+        return self.waited / self.items if self.items else None
+
+
+def prefetch(iterator: Iterator, depth: int = 2,
+             stats: Optional[PrefetchStats] = None) -> Iterator:
     """Run `iterator` in a background thread, `depth` items ahead of the
     consumer. An exception in the producer is raised in the consumer; a
-    consumer that stops early stops the producer."""
+    consumer that stops early stops the producer. `stats`, where given,
+    counts the items taken and the waits for them."""
     q: Queue = Queue(maxsize=depth)
     sentinel = object()
     stop = threading.Event()
@@ -195,11 +270,22 @@ def prefetch(iterator: Iterator, depth: int = 2) -> Iterator:
     t.start()
     try:
         while True:
-            item = q.get()
+            wait = None
+            try:
+                item = q.get_nowait()
+            except Empty:
+                t0 = time.perf_counter()
+                item = q.get()
+                wait = time.perf_counter() - t0
             if item is sentinel:
                 return
             if isinstance(item, BaseException):
                 raise item
+            if stats is not None:
+                stats.items += 1
+                if wait is not None:
+                    stats.waited += 1
+                    stats.wait_s += wait
             yield item
     finally:
         stop.set()

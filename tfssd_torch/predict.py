@@ -61,8 +61,9 @@ import torch
 
 from tfssd_torch import get_hyper_params, resolve_device
 from tfssd_torch.config import SSDConfig
-from tfssd_torch.data.loader import (ConcatDataset, TakeDataset,
-                                     batch_examples, prefetch, stage_arrays)
+from tfssd_torch.data.loader import (DEVICE_CACHE_BYTES, ConcatDataset,
+                                     TakeDataset, batch_examples, prefetch,
+                                     stage_arrays)
 from tfssd_torch.data.synthetic import SyntheticDataset
 from tfssd_torch.data.voc import (LABELS, VOCDataset, custom_image_generator,
                                   get_custom_imgs)
@@ -82,9 +83,6 @@ from tfssd_torch.utils.metrics import StepTimer
 # The evaluation split the JAX predictor serves for --dataset synthetic.
 SYNTHETIC_EVAL_SIZE = 128
 SYNTHETIC_EVAL_SEED = 10_000
-# The JAX predictor's rule for --device-cache auto: stage the split when
-# its uint8 images take at most this many bytes.
-DEVICE_CACHE_BYTES = 6e9
 # ServingRun.outputs keeps the (deltas, logits) of this many first batches
 # (128 images at batch 8: the whole synthetic split).
 OUTPUT_BATCHES_KEPT = 16

@@ -14,16 +14,25 @@ Adam(1e-3, eps 1e-8) with the reference's step decay (1e-3 -> 1e-4 ->
   9. BatchNorm running statistics (updated by the forward, as Flax's
      mutable batch_stats)
 
-Metrics stay on the device until the caller reads them. The
-device-resident feed (make_cached_train_step) gathers each batch from a
-uint8 dataset staged on the device, as the JAX package's cached path does.
+Metrics stay on the device until the caller reads them (with
+utils/profiling.py's enable_debug_nans, each step reads its loss metrics
+and gradient norm before the update and raises FloatingPointError at a
+non-finite one). The device-resident feed (make_cached_train_step)
+gathers each batch from a uint8 dataset staged on the device, as the JAX
+package's cached path does. The multi-step forms
+(make_multi_train_step, make_cached_multi_train_step) run K steps in one
+call, as the JAX package's lax.scan does: the same computation as K
+single calls (the step count, and with it the rate and the augmentation
+draws, advances per step) with no read of a metric between them, their
+metrics stacked (K,). Each step runs inside a profiler range
+"train_step#<step>".
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Callable, Dict, Tuple
+from typing import Callable, Dict, List, Tuple
 
 import numpy as np
 import torch
@@ -34,6 +43,7 @@ from tfssd_torch.models.decoder import preprocess_images
 from tfssd_torch.models.ssd import SSD, get_model, init_random_weights
 from tfssd_torch.ops.kernels.match_encode import match_batch
 from tfssd_torch.ops.losses import ssd_losses
+from tfssd_torch.utils import profiling
 
 Batch = Dict[str, torch.Tensor]
 Metrics = Dict[str, torch.Tensor]
@@ -126,6 +136,10 @@ def make_train_step(anchors: torch.Tensor, config: SSDConfig,
     gen = torch.Generator(device=anchors.device) if augment else None
 
     def train_step(state: TrainState, batch: Batch) -> Metrics:
+        with profiling.step_annotation("train_step", state.step):
+            return one_step(state, batch)
+
+    def one_step(state: TrainState, batch: Batch) -> Metrics:
         model, opt = state.model, state.optimizer
         images = batch["image"]
         if images.dtype == torch.uint8:
@@ -148,15 +162,43 @@ def make_train_step(anchors: torch.Tensor, config: SSDConfig,
         total.backward()
         grads = [p.grad for p in model.parameters() if p.grad is not None]
         metrics["grad_norm"] = torch.nn.utils.get_total_norm(grads)
+        if profiling.debug_nans_enabled():
+            profiling.check_finite(metrics, state.step)
         apply_gradients(state)
         return metrics
 
     return train_step
 
 
+def stack_metrics(per_step: List[Metrics]) -> Metrics:
+    """Per-step metrics -> each metric stacked (K,), on the device."""
+    return {k: torch.stack([m[k] for m in per_step]) for k in per_step[0]}
+
+
+def make_multi_train_step(anchors: torch.Tensor, config: SSDConfig,
+                          augment: bool = True, seed: int = 0):
+    """(state, superbatch) -> metrics stacked (K,): K train steps in one
+    call over a super-batch {'image' (K,B,S,S,3), 'boxes' (K,B,G,4),
+    'labels' (K,B,G)} (data/loader.py:stack_batches), each slice through
+    make_train_step as K separate calls would go."""
+    base = make_train_step(anchors, config, augment, seed)
+
+    def multi_step(state: TrainState, superbatch: Batch) -> Metrics:
+        k = superbatch["image"].shape[0]
+        return stack_metrics([
+            base(state, {key: superbatch[key][i]
+                         for key in ("image", "boxes", "labels")})
+            for i in range(k)])
+
+    return multi_step
+
+
 def gather_rows(data: Batch, idx: torch.Tensor) -> Batch:
     """One batch gathered on the device from a device-resident dataset
-    ({'image' (N,S,S,3) uint8, 'boxes', 'labels'}); idx (B,) int64."""
+    ({'image' (N,S,S,3) uint8, 'boxes', 'labels'}); idx (B,) int64. The
+    images stay 4-D: the JAX package stages them flat (flatten_images)
+    because XLA's gather would otherwise relayout the whole dataset,
+    which index_select does not do."""
     return {k: data[k].index_select(0, idx)
             for k in ("image", "boxes", "labels") if k in data}
 
@@ -172,6 +214,20 @@ def make_cached_train_step(anchors: torch.Tensor, config: SSDConfig,
         return base(state, gather_rows(data, idx))
 
     return cached_step
+
+
+def make_cached_multi_train_step(anchors: torch.Tensor, config: SSDConfig,
+                                 augment: bool = True, seed: int = 0):
+    """(state, data, idx (K, B)) -> metrics stacked (K,): K train steps in
+    one call over device-resident data, each gathering its own rows."""
+    base = make_train_step(anchors, config, augment, seed)
+
+    def multi_step(state: TrainState, data: Batch,
+                   idx: torch.Tensor) -> Metrics:
+        return stack_metrics([base(state, gather_rows(data, row))
+                              for row in idx])
+
+    return multi_step
 
 
 def make_eval_step(anchors: torch.Tensor, config: SSDConfig):
@@ -196,15 +252,25 @@ def make_eval_step(anchors: torch.Tensor, config: SSDConfig):
     return eval_step
 
 
+def make_cached_eval_step(anchors: torch.Tensor, config: SSDConfig):
+    """(state, data, idx (B,)) -> metrics: the eval step on rows gathered
+    from device-resident data."""
+    base = make_eval_step(anchors, config)
+
+    def cached_eval(state: TrainState, data: Batch,
+                    idx: torch.Tensor) -> Metrics:
+        return base(state, gather_rows(data, idx))
+
+    return cached_eval
+
+
 def make_cached_multi_eval_step(anchors: torch.Tensor, config: SSDConfig):
     """(state, data, idx (K, B)) -> metrics stacked (K,): the whole
     validation pass over device-resident data, one batch after another."""
-    base = make_eval_step(anchors, config)
+    base = make_cached_eval_step(anchors, config)
 
     def multi_eval(state: TrainState, data: Batch,
                    idx: torch.Tensor) -> Metrics:
-        per_batch = [base(state, gather_rows(data, row)) for row in idx]
-        return {k: torch.stack([m[k] for m in per_batch])
-                for k in per_batch[0]}
+        return stack_metrics([base(state, data, row) for row in idx])
 
     return multi_eval

@@ -1,63 +1,117 @@
-"""Training entry point (port of the repository's trainer.py, its default
-path: the synthetic dataset, staged on the device once).
+"""Training entry point (port of the repository's trainer.py).
 
-    python -m tfssd_torch.trainer [--backbone vgg16] --dataset synthetic \\
-        --epochs 2 --steps-per-epoch 3 --batch-size 32 [--device cpu] \\
-        [--bf16] [--remat] [--resume]
+    python -m tfssd_torch.trainer [--backbone vgg16] --dataset voc \\
+        --data-root VOCdevkit/VOC2007 [--data-root VOCdevkit/VOC2012] \\
+        [--val-split val] [--device-cache {auto,on,off}] \\
+        [--steps-per-call K] [--workers 8] [--prefetch-depth 4] \\
+        [--profile] [--debug-nans] [--bf16] [--remat] [--resume] \\
+        [--device cpu]
 
 Each of the JAX package's configurations at full width, 21 labels and 64
 gt rows per image: SSD300-MobileNetV2 (--backbone mobilenet_v2, the
 default: 300x300 images, 2,268 anchors), SSD300-VGG16 (vgg16: 300x300,
 8,732 anchors) and SSD512-VGG16 (vgg16_512: 512x512, 24,564 anchors).
-Each step gathers its batch on the device, augments it there, matches it
-with the match/encode kernel (CUDA) and takes one Adam step; validation
-runs every --val-every epochs and
-checkpoints keep the 3 best by validation loss under
-<model-dir>/ssd_<backbone>_torch. It runs on the card unless --device cpu
-is given, and raises when there is no card. It writes only under
---model-dir and --log-dir. --bf16 runs the backbone and heads in bfloat16
-(parameters, BatchNorm statistics, matching, the loss and Adam stay
-float32) and --remat recomputes the backbone's activations in the
+Every step augments its batch on the device, matches it with the
+match/encode kernel (CUDA) and takes one Adam step; validation runs every
+--val-every epochs and checkpoints keep the 3 best by validation loss
+under <model-dir>/ssd_<backbone>_torch. It runs on the card unless
+--device cpu is given, and raises when there is no card. It writes only
+under --model-dir and --log-dir. --bf16 runs the backbone and heads in
+bfloat16 (parameters, BatchNorm statistics, matching, the loss and Adam
+stay float32) and --remat recomputes the backbone's activations in the
 backward, as the JAX trainer's flags do; neither changes the directories,
 the sidecar or the checkpoint's keys, so --resume works across them.
 
-The index stream is the JAX trainer's: epoch e visits
-np.random.default_rng(seed * 10_000 + e) permutations of the training
-set. Not ported yet (ROADMAP.md): streamed feeding and VOC directories,
---port-h5, --steps-per-call, --profile and --debug-nans.
+Data. --dataset voc reads VOCdevkit-style roots (--data-root
+ROOT[:SPLIT], repeatable: the roots' --train-split sets one after
+another, as VOC07+12 is trained) and validates on the first root's
+--val-split. --dataset synthetic (the port's default, as for
+tfssd_torch.predict; the JAX trainer's is voc) trains on the synthetic
+scenes. Two feeds, chosen by --device-cache (auto: the device cache when
+the uint8 images of both sets take at most 6e9 bytes, as in the JAX
+trainer):
+  * the device cache stages both sets on the device once and gathers each
+    step's rows there;
+  * the streamed feed decodes each epoch's batches in --workers threads
+    and copies them to the device in a prefetch thread, --prefetch-depth
+    batches ahead. The copy is a plain .to(device) of pageable memory,
+    which returns once the batch is on the device, so the step never
+    reads a batch before its copy lands (no pinned memory, no side
+    stream). An epoch is one pass: a larger --steps-per-epoch is clamped.
+Both feeds visit epoch e in the order
+np.random.default_rng(seed * 10_000 + e).permutation(len(train)), so with
+the same flags they train on the same batches in the same order.
+
+--steps-per-call K runs K steps per call (train.make_multi_train_step,
+make_cached_multi_train_step; steps per epoch floored to a multiple of
+K), the same computation as K calls of one step; the metrics of the last
+step of the call that crosses the --log-every cadence are logged.
+--profile writes a torch.profiler trace of the first epoch into the log
+directory (also when the epoch raises), each step in a "train_step#<step>"
+range. --debug-nans reads each step's loss metrics and gradient norm and
+raises FloatingPointError at the first non-finite one (utils/
+profiling.py). --pallas and --handle-gpu are accepted so that the JAX
+trainer's command lines parse: on the card the match/encode kernel always
+runs. Not ported: --port-h5 (a Keras trunk file; ROADMAP.md).
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import itertools
 import json
 import os
 import time
-from typing import Dict, List, Optional, Sequence
+from typing import Dict, Iterator, List, Optional, Sequence
 
 import numpy as np
 import torch
 
 from tfssd_torch import get_hyper_params, resolve_device
-from tfssd_torch.data.loader import stage_arrays
+from tfssd_torch.data.loader import (DEVICE_CACHE_BYTES, ConcatDataset,
+                                     PrefetchStats, batch_examples, prefetch,
+                                     stack_batches, stage_arrays)
 from tfssd_torch.data.synthetic import SyntheticDataset
+from tfssd_torch.data.voc import VOCDataset
 from tfssd_torch.ops.boxes import generate_anchors
 from tfssd_torch.train import (TrainState, create_train_state,
                                make_cached_multi_eval_step,
-                               make_cached_train_step, make_lr_schedule)
+                               make_cached_multi_train_step,
+                               make_cached_train_step, make_eval_step,
+                               make_lr_schedule, make_multi_train_step,
+                               make_train_step)
+from tfssd_torch.utils import profiling
 from tfssd_torch.utils.checkpoint import CheckpointManager
-from tfssd_torch.utils.io import get_log_path, get_model_path, handle_args
+from tfssd_torch.utils.io import (get_log_path, get_model_path, handle_args,
+                                  parse_data_root)
 from tfssd_torch.utils.metrics import MetricsLogger
 
 # The JAX trainer's short names in its e2e metric.
 _SHORT = {"mobilenet_v2": "mbv2", "vgg16": "vgg16", "vgg16_512": "ssd512"}
+_KEYS = ("image", "boxes", "labels")
 
 
-def make_datasets(synthetic_size: int, img_size: int):
-    """The JAX trainer's synthetic train and validation sets."""
-    train = SyntheticDataset(synthetic_size, image_size=img_size, seed=0)
-    val = SyntheticDataset(max(synthetic_size // 8, 8), image_size=img_size,
-                           seed=10_000)
+def make_datasets(args, img_size: int):
+    """The training and validation sets, as the JAX trainer picks them."""
+    if args.dataset == "voc" and not args.data_root:
+        raise SystemExit(
+            "--dataset voc needs at least one --data-root "
+            "VOCdevkit/VOC2007-style directory (tfds is unavailable "
+            "offline); pass --dataset synthetic to train without data")
+    if args.dataset == "voc":
+        parts = [VOCDataset(root, split, image_size=img_size)
+                 for root, split in (parse_data_root(s, args.train_split)
+                                     for s in args.data_root)]
+        train = parts[0] if len(parts) == 1 else ConcatDataset(parts)
+        # validation reads the first root only (VOC07's, in VOC07+12)
+        val_root, _ = parse_data_root(args.data_root[0], args.train_split)
+        val = VOCDataset(val_root, args.val_split, image_size=img_size)
+        return train, val
+    train = SyntheticDataset(args.synthetic_size, image_size=img_size,
+                             seed=0)
+    val = SyntheticDataset(max(args.synthetic_size // 8, 8),
+                           image_size=img_size, seed=10_000)
     return train, val
 
 
@@ -75,8 +129,11 @@ def epoch_indices(seed: int, epoch: int, train_n: int, steps: int,
 @dataclasses.dataclass
 class TrainRun:
     """What one trainer run did: the final state, the steps it ran (this
-    run only), the logged train metrics, the validation losses per epoch,
-    the validation batches evaluated, the checkpoint directory and the
+    run only), the logged train metrics, every step's metrics in order,
+    the validation losses per epoch, the validation batches evaluated,
+    the checkpoint and log directories, the feed (device_cache,
+    steps_per_call, steps_per_epoch), each epoch's seconds (train,
+    validation and checkpoint), the streamed feed's prefetch waits and the
     end-to-end img/s (None when fewer than two epochs ran)."""
 
     state: TrainState
@@ -86,22 +143,44 @@ class TrainRun:
     val_batches: int
     model_path: str
     e2e_img_per_s: Optional[float]
+    step_metrics: List[Dict[str, float]] = dataclasses.field(
+        default_factory=list)
+    log_path: str = ""
+    device_cache: bool = True
+    steps_per_call: int = 1
+    steps_per_epoch: int = 0
+    epoch_seconds: List[float] = dataclasses.field(default_factory=list)
+    prefetch: PrefetchStats = dataclasses.field(
+        default_factory=PrefetchStats)
 
 
 def build_parser():
-    p = handle_args("tfssd_torch trainer (PyTorch/CUDA training path)")
+    p = handle_args("tfssd_torch trainer (PyTorch/CUDA training path)",
+                    datasets=("synthetic", "voc"))
+    p.prog = "python -m tfssd_torch.trainer"
     p.add_argument("--epochs", type=int, default=120)
     p.add_argument("--steps-per-epoch", type=int, default=None,
                    help="override; default = floor(len(train)/batch)")
+    p.add_argument("--train-split", default="trainval")
+    p.add_argument("--val-split", default="val")
     p.add_argument("--synthetic-size", type=int, default=512)
     p.add_argument("--no-augment", action="store_true")
     p.add_argument("--resume", action="store_true")
     p.add_argument("--init-lr", type=float, default=1e-3)
     p.add_argument("--bf16", action="store_true",
                    help="bfloat16 conv trunk and heads (float32 parameters)")
+    p.add_argument("--pallas", action="store_true",
+                   help="accepted for the JAX trainer's command lines; on "
+                        "the card the match/encode kernel always runs")
     p.add_argument("--remat", action="store_true",
                    help="rematerialize backbone activations "
                         "(larger batches, ~30%% more fwd FLOPs)")
+    p.add_argument("--profile", action="store_true",
+                   help="write a torch.profiler trace of the first epoch "
+                        "into the log dir")
+    p.add_argument("--debug-nans", action="store_true",
+                   help="raise FloatingPointError at the first non-finite "
+                        "loss or gradient (reads every step's metrics)")
     p.add_argument("--ckpt-every", type=int, default=1,
                    help="epochs between checkpoint saves (the final epoch "
                         "always saves)")
@@ -111,11 +190,147 @@ def build_parser():
                         "its checkpoint)")
     p.add_argument("--val-limit", type=int, default=None,
                    help="cap validation at N batches per pass")
+    p.add_argument("--steps-per-call", type=int, default=1,
+                   help="optimizer steps per call, the same computation "
+                        "as one step per call; steps_per_epoch is floored "
+                        "to a multiple")
+    p.add_argument("--device-cache", choices=("auto", "on", "off"),
+                   default="auto",
+                   help="stage the decoded data on the device once and "
+                        "gather batches there (auto: on when the uint8 "
+                        "images take at most 6e9 bytes); off streams "
+                        "batches decoded on the host")
+    p.add_argument("--prefetch-depth", type=int, default=4,
+                   help="host batches buffered ahead of the device")
+    p.add_argument("--workers", type=int, default=8,
+                   help="parallel host decode threads")
     p.add_argument("--log-every", type=int, default=50,
                    help="steps between metric reads (each waits for the "
                         "device)")
     p.add_argument("--seed", type=int, default=0)
     return p
+
+
+def _epoch_geometry(args, train_n: int, device_cache: bool):
+    """(steps_per_epoch, steps_per_call) as the JAX trainer derives them,
+    with its messages: one pass per streamed epoch, floored to a multiple
+    of the steps per call."""
+    one_pass_steps = max(train_n // args.batch_size, 1)
+    steps_per_epoch = args.steps_per_epoch or one_pass_steps
+    if not device_cache and steps_per_epoch > one_pass_steps:
+        print(f"steps_per_epoch clamped to {one_pass_steps} (one dataset "
+              f"pass; the streamed path cannot wrap — use --device-cache "
+              f"on for longer epochs)")
+        steps_per_epoch = one_pass_steps
+    spc = max(1, min(args.steps_per_call, steps_per_epoch))
+    if steps_per_epoch % spc:
+        steps_per_epoch -= steps_per_epoch % spc
+        print(f"steps_per_epoch floored to {steps_per_epoch} "
+              f"(multiple of --steps-per-call {spc})")
+    return steps_per_epoch, spc
+
+
+def _host_rows(calls: List[Dict[str, torch.Tensor]]) -> List[Dict]:
+    """Per-step metrics of one epoch's calls (scalars or stacked (K,)),
+    read from the device in one transfer."""
+    if not calls:
+        return []
+    keys = list(calls[0])
+    cols = torch.stack([torch.cat([c[k].float().reshape(-1) for c in calls])
+                        for k in keys]).tolist()
+    return [dict(zip(keys, row)) for row in zip(*cols)]
+
+
+class _CachedFeed:
+    """Both sets staged on the device once (uint8 pixels: augmentation
+    runs per step on the device); each call gathers its rows there."""
+
+    def __init__(self, args, train_ds, val_ds, max_gt: int, dev):
+        self.args, self.dev = args, dev
+        t0 = time.perf_counter()
+        host, self.train_n = stage_arrays(train_ds, max_gt,
+                                          workers=args.workers)
+        self.train = {k: torch.from_numpy(host[k]).to(dev) for k in _KEYS}
+        del host
+        host, self.val_n = stage_arrays(val_ds, max_gt, workers=args.workers,
+                                        pad_to_multiple=args.batch_size)
+        self.val = {k: torch.from_numpy(host[k]).to(dev) for k in _KEYS}
+        del host
+        img_size = self.train["image"].shape[1]
+        gb = (self.train_n + self.val_n) * img_size ** 2 * 3 / 1e9
+        print(f"device cache: staged {self.train_n}+{self.val_n} images "
+              f"(~{gb:.2f} GB) in {time.perf_counter() - t0:.1f}s")
+
+    def epoch(self, epoch: int, steps: int, spc: int) -> Iterator[tuple]:
+        """The train step's arguments after the state, call by call."""
+        rows = torch.from_numpy(epoch_indices(
+            self.args.seed, epoch, self.train_n, steps,
+            self.args.batch_size)).to(self.dev)
+        for first in range(0, steps, spc):
+            idx = rows[first:first + spc]
+            yield self.train, (idx if spc > 1 else idx[0])
+
+    def validate(self, eval_step, state: TrainState):
+        """(mean loss of each validation batch, real rows): the whole pass
+        dispatched before one read."""
+        b = self.args.batch_size
+        n_batches = self.val["image"].shape[0] // b
+        if self.args.val_limit is not None:
+            n_batches = min(n_batches, self.args.val_limit)
+        idx = torch.arange(n_batches * b, device=self.dev).reshape(
+            n_batches, b)
+        losses = eval_step(state, self.val, idx)["loss"].tolist()
+        count = sum(max(0, min(self.val_n - vb * b, b))
+                    for vb in range(n_batches))
+        return losses, count
+
+
+class _StreamedFeed:
+    """Batches decoded on the host in --workers threads and copied to the
+    device in a prefetch thread, --prefetch-depth ahead. The copy is a
+    plain .to(device) of pageable memory, which returns once the batch is
+    on the device: the step never reads a batch before its copy lands."""
+
+    def __init__(self, args, train_ds, val_ds, max_gt: int, dev,
+                 stats: PrefetchStats):
+        self.args, self.dev, self.stats = args, dev, stats
+        self.train_ds, self.val_ds, self.max_gt = train_ds, val_ds, max_gt
+
+    def _to_device(self, batches):
+        for b in batches:
+            yield ({k: torch.from_numpy(b[k]).to(self.dev) for k in _KEYS},
+                   b["num_valid"])
+
+    def epoch(self, epoch: int, steps: int, spc: int) -> Iterator[tuple]:
+        """One pass in the order of np.random.default_rng(seed * 10_000 +
+        epoch), as the device cache's, k batches stacked per call."""
+        args = self.args
+        batches = batch_examples(self.train_ds, args.batch_size,
+                                 self.max_gt,
+                                 shuffle_seed=args.seed * 10_000 + epoch,
+                                 workers=args.workers)
+        if spc > 1:
+            batches = stack_batches(batches, spc)
+        with contextlib.closing(prefetch(self._to_device(batches),
+                                         depth=args.prefetch_depth,
+                                         stats=self.stats)) as it:
+            for batch, _ in itertools.islice(it, steps // spc):
+                yield (batch,)
+
+    def validate(self, eval_step, state: TrainState):
+        """(mean loss of each validation batch, real rows), the short last
+        batch padded."""
+        args = self.args
+        losses, count = [], 0
+        batches = prefetch(self._to_device(batch_examples(
+            self.val_ds, args.batch_size, self.max_gt, drop_remainder=False,
+            workers=args.workers)), depth=args.prefetch_depth)
+        with contextlib.closing(batches):
+            for batch, num_valid in itertools.islice(batches,
+                                                     args.val_limit):
+                losses.append(eval_step(state, batch)["loss"])
+                count += num_valid
+        return (torch.stack(losses).tolist() if losses else []), count
 
 
 def main(argv: Optional[Sequence[str]] = None) -> TrainRun:
@@ -127,28 +342,40 @@ def main(argv: Optional[Sequence[str]] = None) -> TrainRun:
     print(f"backbone={cfg.backbone} img={cfg.img_size} "
           f"anchors={cfg.total_anchors} device={dev} "
           f"compute_dtype={cfg.compute_dtype} remat={cfg.remat}")
-    train_ds, val_ds = make_datasets(args.synthetic_size, cfg.img_size)
+    train_ds, val_ds = make_datasets(args, cfg.img_size)
     if len(train_ds) < args.batch_size:
         raise SystemExit(
             f"training dataset ({len(train_ds)} examples) is smaller than "
             f"--batch-size {args.batch_size}; full batches are required")
-    steps_per_epoch = (args.steps_per_epoch
-                       or max(len(train_ds) // args.batch_size, 1))
+    est_bytes = (len(train_ds) + len(val_ds)) * cfg.img_size ** 2 * 3
+    device_cache = (args.device_cache == "on" or
+                    (args.device_cache == "auto"
+                     and est_bytes <= DEVICE_CACHE_BYTES))
+    if args.device_cache == "auto" and not device_cache:
+        print(f"device cache off: dataset ~{est_bytes/1e9:.1f} GB "
+              f"exceeds the 6 GB auto threshold (--device-cache on to "
+              f"force)")
+    steps_per_epoch, spc = _epoch_geometry(args, len(train_ds), device_cache)
 
     anchors = torch.from_numpy(generate_anchors(cfg)).to(dev)
     schedule = make_lr_schedule(steps_per_epoch, args.init_lr)
     state = create_train_state(cfg, args.seed, dev, schedule)
-    train_step = make_cached_train_step(anchors, cfg,
-                                        augment=not args.no_augment,
-                                        seed=args.seed + 1)
-    eval_step = make_cached_multi_eval_step(anchors, cfg)
+    step_kw = dict(augment=not args.no_augment, seed=args.seed + 1)
+    if device_cache:
+        factory = (make_cached_multi_train_step if spc > 1
+                   else make_cached_train_step)
+        eval_step = make_cached_multi_eval_step(anchors, cfg)
+    else:
+        factory = make_multi_train_step if spc > 1 else make_train_step
+        eval_step = make_eval_step(anchors, cfg)
+    train_step = factory(anchors, cfg, **step_kw)
 
     model_path = get_model_path(args.backbone, args.model_dir)
     ckpt = CheckpointManager(model_path)
     # Schedule-geometry sidecar: the resume epoch and the LR boundaries
     # follow the current flags, so warn when they changed.
     meta = {"steps_per_epoch": steps_per_epoch,
-            "batch_size": args.batch_size, "steps_per_call": 1}
+            "batch_size": args.batch_size, "steps_per_call": spc}
     meta_path = os.path.normpath(model_path) + "_meta.json"
     if args.resume and ckpt.latest_step() is not None:
         if os.path.exists(meta_path):
@@ -164,79 +391,83 @@ def main(argv: Optional[Sequence[str]] = None) -> TrainRun:
     with open(meta_path, "w") as f:
         json.dump(meta, f)
 
-    # Stage both datasets on the device once (uint8 pixels; augmentation
-    # runs per step on the device).
-    t0 = time.perf_counter()
-    host_train, train_n = stage_arrays(train_ds, cfg.max_gt_boxes)
-    host_val, val_n = stage_arrays(val_ds, cfg.max_gt_boxes,
-                                   pad_to_multiple=args.batch_size)
-    keys = ("image", "boxes", "labels")
-    train_data = {k: torch.from_numpy(host_train[k]).to(dev) for k in keys}
-    val_data = {k: torch.from_numpy(host_val[k]).to(dev) for k in keys}
-    del host_train, host_val
-    gb = (train_n + val_n) * cfg.img_size ** 2 * 3 / 1e9
-    print(f"device cache: staged {train_n}+{val_n} images (~{gb:.2f} GB) "
-          f"in {time.perf_counter() - t0:.1f}s")
-
+    waits = PrefetchStats()
+    feed = (_CachedFeed(args, train_ds, val_ds, cfg.max_gt_boxes, dev)
+            if device_cache else
+            _StreamedFeed(args, train_ds, val_ds, cfg.max_gt_boxes, dev,
+                          waits))
     log_path = get_log_path(args.backbone, args.log_dir)
-    run = TrainRun(state, 0, [], {}, 0, model_path, None)
+    run = TrainRun(state, 0, [], {}, 0, model_path, None,
+                   log_path=log_path, device_cache=device_cache,
+                   steps_per_call=spc, steps_per_epoch=steps_per_epoch,
+                   prefetch=waits)
     total_images = 0
     train_start = None
-    with MetricsLogger(log_path) as log:
-        start_epoch = state.step // steps_per_epoch
-        for epoch in range(start_epoch, args.epochs):
-            rows = torch.from_numpy(epoch_indices(
-                args.seed, epoch, train_n, steps_per_epoch,
-                args.batch_size)).to(dev)
-            epoch_metrics = []
-            for step_in_epoch in range(steps_per_epoch):
-                metrics = train_step(state, train_data, rows[step_in_epoch])
-                run.steps_run += 1
-                if step_in_epoch % args.log_every == 0:
-                    m = {k: float(v) for k, v in metrics.items()}
-                    epoch_metrics.append(m)
-                    print(f"epoch {epoch} step {step_in_epoch}/"
-                          f"{steps_per_epoch} loss={m['loss']:.4f} "
-                          f"loc={m['loc_loss']:.4f} "
-                          f"conf={m['conf_loss']:.4f}")
-                    log.log(state.step, m, prefix="train/")
-            run.train_metrics.extend(epoch_metrics)
-            if train_start is not None:
-                total_images += steps_per_epoch * args.batch_size
+    debug_nans_before = profiling.enable_debug_nans(args.debug_nans)
+    try:
+        with MetricsLogger(log_path) as log:
+            start_epoch = state.step // steps_per_epoch
+            for epoch in range(start_epoch, args.epochs):
+                t_epoch = time.perf_counter()
+                epoch_steps, epoch_metrics = 0, []
+                calls = []
+                with contextlib.ExitStack() as stack:
+                    if args.profile and epoch == start_epoch:
+                        # written also when the epoch raises (a NaN halt,
+                        # an interrupt): the failing run is when the trace
+                        # matters
+                        stack.callback(print, f"profiler trace written to "
+                                              f"{log_path}")
+                        stack.enter_context(profiling.trace(log_path))
+                    for step_args in feed.epoch(epoch, steps_per_epoch, spc):
+                        step_in_epoch = epoch_steps
+                        metrics = train_step(state, *step_args)
+                        calls.append(metrics)
+                        epoch_steps += spc
+                        # Metrics stay on the device but at the logging
+                        # cadence; a call of K steps logs its last step.
+                        if step_in_epoch % args.log_every < spc:
+                            m = {k: float(v[-1] if spc > 1 else v)
+                                 for k, v in metrics.items()}
+                            epoch_metrics.append(m)
+                            print(f"epoch {epoch} step {step_in_epoch}/"
+                                  f"{steps_per_epoch} loss={m['loss']:.4f} "
+                                  f"loc={m['loc_loss']:.4f} "
+                                  f"conf={m['conf_loss']:.4f}")
+                            log.log(state.step, m, prefix="train/")
+                    run.step_metrics.extend(_host_rows(calls))
+                run.steps_run += epoch_steps
+                run.train_metrics.extend(epoch_metrics)
+                if train_start is not None:
+                    total_images += epoch_steps * args.batch_size
 
-            last_epoch = epoch == args.epochs - 1
-            if (epoch + 1) % args.val_every == 0 or last_epoch:
-                n_batches = val_data["image"].shape[0] // args.batch_size
-                if args.val_limit is not None:
-                    n_batches = min(n_batches, args.val_limit)
-                idx = torch.arange(n_batches * args.batch_size,
-                                   device=dev).reshape(n_batches,
-                                                       args.batch_size)
-                losses = eval_step(state, val_data, idx)["loss"].tolist()
-                run.val_batches += n_batches
-                # padded rows add zero loss: weight by the real rows
-                val_count = sum(
-                    max(0, min(val_n - vb * args.batch_size,
-                               args.batch_size))
-                    for vb in range(n_batches))
-                val_loss = (sum(x * args.batch_size for x in losses)
-                            / val_count if val_count else float("inf"))
-                run.val_losses[epoch] = val_loss
-                tr = (float(np.mean([m["loss"] for m in epoch_metrics]))
-                      if epoch_metrics else float("nan"))
-                print(f"epoch {epoch}: train_loss={tr:.4f} "
-                      f"val_loss={val_loss:.4f} "
-                      f"lr={schedule(state.step):.2e}")
-                log.log(state.step, {"val_loss": val_loss, "epoch": epoch})
-                if (epoch + 1) % args.ckpt_every == 0 or last_epoch:
-                    ckpt.save(state.step, state, val_loss=val_loss)
-            # The end-to-end clock starts after the first epoch (train,
-            # validation and checkpoint), so one-time set-up (cuDNN plans,
-            # the kernel build) stays out of it.
-            if dev.type == "cuda":
-                torch.cuda.synchronize(dev)
-            if train_start is None:
-                train_start = time.perf_counter()
+                last_epoch = epoch == args.epochs - 1
+                if (epoch + 1) % args.val_every == 0 or last_epoch:
+                    losses, val_count = feed.validate(eval_step, state)
+                    run.val_batches += len(losses)
+                    # padded rows add zero loss: weight by the real rows
+                    val_loss = (sum(x * args.batch_size for x in losses)
+                                / val_count if val_count else float("inf"))
+                    run.val_losses[epoch] = val_loss
+                    tr = (float(np.mean([m["loss"] for m in epoch_metrics]))
+                          if epoch_metrics else float("nan"))
+                    print(f"epoch {epoch}: train_loss={tr:.4f} "
+                          f"val_loss={val_loss:.4f} "
+                          f"lr={schedule(state.step):.2e}")
+                    log.log(state.step, {"val_loss": val_loss,
+                                         "epoch": epoch})
+                    if (epoch + 1) % args.ckpt_every == 0 or last_epoch:
+                        ckpt.save(state.step, state, val_loss=val_loss)
+                # The end-to-end clock starts after the first epoch (train,
+                # validation and checkpoint), so one-time set-up (cuDNN
+                # plans, the kernel build) stays out of it.
+                if dev.type == "cuda":
+                    torch.cuda.synchronize(dev)
+                run.epoch_seconds.append(time.perf_counter() - t_epoch)
+                if train_start is None:
+                    train_start = time.perf_counter()
+    finally:
+        profiling.enable_debug_nans(debug_nans_before)
 
     if train_start is not None and total_images:
         run.e2e_img_per_s = total_images / (time.perf_counter()
@@ -247,9 +478,10 @@ def main(argv: Optional[Sequence[str]] = None) -> TrainRun:
             "value": round(run.e2e_img_per_s, 2), "unit": "images/sec",
             "config": f"tfssd_torch.trainer end-to-end, batch "
                       f"{args.batch_size}, val-every {args.val_every}, "
-                      f"device-cached data, incl. validation + "
-                      f"checkpointing (after the first epoch), "
-                      f"{cfg.compute_dtype}"
+                      f"{'device-cached data' if device_cache else 'streamed data'}"
+                      + (f", steps-per-call {spc}" if spc > 1 else "")
+                      + f", incl. validation + checkpointing (after the "
+                      f"first epoch), {cfg.compute_dtype}"
                       + (", remat" if cfg.remat else "")
                       + f", device={dev.type}"}))
     return run

@@ -28,6 +28,10 @@ def handle_args(description: str = "tfssd_torch",
                    choices=VALID_BACKBONES,
                    help="which SSD configuration: mobilenet_v2 "
                         "(SSD300), vgg16 (SSD300) or vgg16_512 (SSD512)")
+    p.add_argument("-handle-gpu", "--handle-gpu", action="store_true",
+                   help="accepted so that the reference's command lines "
+                        "parse; changes nothing (PyTorch's caching "
+                        "allocator grows device memory as needed)")
     p.add_argument("--batch-size", type=int, default=32)
     p.add_argument("--dataset", default="synthetic", choices=datasets)
     if "voc" in datasets:

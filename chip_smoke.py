@@ -7,7 +7,11 @@ Phases, in order; any failure ends the run with a non-zero exit:
   1. build  — nvcc builds every kernel of the serving and training paths
               from tfssd_torch/csrc/ into build/tfssd_torch/, all at once
               (seconds, registers and shared memory printed).
-  2. kernel — the NMS keep kernel on the real candidates of the path's
+  2. kernel — every kernel through its custom operator (tfssd::nms_keep,
+              tfssd::match_encode: the main paths' call, whose CUDA
+              implementation is the kernel), held against its plain
+              version as below.
+              The NMS keep kernel on the real candidates of the path's
               first batch (R = 8 images x 20 classes, K = 200) and of a
               batch of 64, held bit-equal against its plain PyTorch version
               on the card; both kept and suppressed entries must occur.
@@ -153,6 +157,35 @@ Phases, in order; any failure ends the run with a non-zero exit:
               of epoch 1. --debug-nans on a run whose --init-lr diverges:
               FloatingPointError, and its --profile trace still written;
               the same run without the flag printed.
+  4c. export — `predict.main(["--export", P, "--export-batch", "8"])` at
+              the CLI's other defaults (the committed checkpoint, the card,
+              BatchNorm left unfolded); a fresh `python -c` process that
+              imports only tfssd_torch.ops.kernels and
+              tfssd_torch.utils.export (no module of tfssd_torch.models)
+              loads P on the card and serves phase 4's 128 images
+              (preprocessed, batch 8): its nms_keep launches, counted from
+              0, must equal its 16 calls; its NMSResults equal the eager
+              --no-fold-bn run's of phase 4 (classes and valid equal, boxes
+              and scores within EXPORT_ATOL; bit-equality printed); their
+              mAP within TRAINED_MAP_GATE of TRAINED_MAP_JAX. The same
+              process loads P on the CPU and serves the first batch,
+              held against the port's CPU path (the unfolded model) by the
+              same gate. Then live against artifact img/s (the JAX
+              package's tools/export_bench.py cell: MobileNetV2 bfloat16,
+              seeded, unfolded, batch 256), in turns in this run.
+  4d. dp    — data-parallel training on the one card: trainer.main at
+              full width (SSD300-MobileNetV2, 2,268 anchors), global batch
+              32, 2 epochs x 3 steps, device cache, augmentation on, cuDNN
+              deterministic, (b) on one NCCL rank (parallel.Group): every
+              step's metrics, the validation losses and the final weights
+              bit-equal to the run without a process group; (a) on two
+              gloo ranks sharing cuda:0 (16 rows each): step 0's losses and
+              grad_norm within DP_STEP0_LOSS / DP_STEP0_GRAD_NORM of the
+              one process's, the later steps, the validation loss and the
+              final weights within DP_LATER, num_pos equal at every step,
+              the ranks' weights bit-equal (distances printed). Each
+              rank's match/encode launches, counted from 0, must equal its
+              steps + validation batches.
   5. timing — serving img/s at batch 8 and 64 (device-resident uint8
               images -> NMSResult), for each VGG16 config at batch 8 and
               the largest of 64 / 32 that fits; train ms/step, img/s and
@@ -161,13 +194,15 @@ Phases, in order; any failure ends the run with a non-zero exit:
               its plain version's ms per call (nms_keep at R = 160 and
               R = 1280 and on each VGG16 config's R = 160, match_encode at
               B = 32, G = 64 and N = 2,268, 8,732 and 24,564, and on a
-              batch whose 64 rows are all real at N = 24,564) beside its
+              batch whose 64 rows are all real at N = 24,564), through
+              the op, beside its
               bound (match_encode: the bytes against the real pairs'
               operations, the padded pairs' figure of earlier runs beside
               it); also the device us per launch (CUDA events around
               replays of a CUDA graph of 20 wrapper calls: no host work
               between launches) and the host us per call (host clock
-              around 200 back-to-back wrapper calls, launches included);
+              around 200 back-to-back calls, launches included) through
+              the op and through the ctypes wrapper alone;
               bfloat16 beside float32: serving img/s of each config at
               batch 8 and 64 (MobileNetV2 also at 256, the JAX
               benchmark's headline batch), train ms/step and peak memory
@@ -181,15 +216,20 @@ Phases, in order; any failure ends the run with a non-zero exit:
      launches_trained_mobilenet_v2 and launches_trained_bf16_mobilenet_v2,
      and its timing on the trained candidates as <key>_trained_R<R>;
      match_encode's on the VOC runs as
-     launches_voc_<config>_{streamed,cached,spc2[,cached_spc2]}), then
-     the one-line JSON result, last.
+     launches_voc_<config>_{streamed,cached,spc2[,cached_spc2]} and on
+     the data-parallel runs as launches_dp_nccl1 and
+     launches_dp_gloo2_rank<r>; nms_keep's in the export phase's fresh
+     process as launches_export_fresh_process, with the artifact's size
+     and the live and artifact img/s), then the one-line JSON result,
+     last.
 
 It exits non-zero without a result when no CUDA device is available, and
 in a directory that holds this script without the tfssd_torch package
 (or without trained/ssd_mobilenet_v2, or without a zstd decoder). It runs
 from the checkout's root and writes nothing outside build/. The whole run
-takes ~280-320 s on an H100, phase 4b ~81 s of it (PERF.md §6); no earlier
-phase was cut to make room for phases 4 and 4b.
+takes ~390 s on an H100 (PERF.md §6, PR 15): phase 4b ~81-89 s, 4c ~45 s,
+4d ~29 s with its two process groups started together; no earlier phase
+was cut to make room for phases 4-4d.
 """
 
 from __future__ import annotations
@@ -209,9 +249,9 @@ from typing import Sequence
 import numpy as np
 import torch
 
-from tfssd_torch import get_hyper_params, predict, trainer
+from tfssd_torch import get_hyper_params, parallel, predict, trainer
 from tfssd_torch.data.augment import augment_batch
-from tfssd_torch.data.loader import stage_arrays
+from tfssd_torch.data.loader import TakeDataset, stage_arrays
 from tfssd_torch.data.synthetic import SyntheticDataset
 from tfssd_torch.evaluate import detection_agreement
 from tfssd_torch.make_voc_drill import make_drill
@@ -350,14 +390,14 @@ def graph_us(fn, per_graph: int = 20, replays: int = 20) -> float:
 
 
 def check_keep_cases(device) -> None:
-    """The keep kernel against its plain version on the card, bit for bit,
-    on every crafted case."""
+    """The keep kernel, through tfssd::nms_keep, against its plain version
+    on the card, bit for bit, on every crafted case."""
     cases = keep_cases(instances=64, seed=1)
     for case in cases:
         boxes = torch.from_numpy(case.boxes).to(device)
         scores = torch.from_numpy(case.scores).to(device)
         thr = (case.iou_threshold, case.score_threshold)
-        got = nms_keep.nms_keep_cuda(boxes, scores, *thr)
+        got = nms_keep.nms_keep(boxes, scores, *thr)
         torch.cuda.synchronize()
         want = nms_keep.nms_keep_reference(boxes, scores, *thr)
         if not torch.equal(got, want):
@@ -511,13 +551,14 @@ def eval_images(cfg, count: int) -> np.ndarray:
 
 
 def check_keep_on_candidates(model, cfg, images: np.ndarray, label: str):
-    """The keep kernel against its plain version on the serving path's
+    """The keep kernel (tfssd::nms_keep) against its plain version on the
+    serving path's
     candidates of `images`: bit-equal, with kept and suppressed entries.
     Returns (boxes, scores, max abs error)."""
     anchors_t = torch.from_numpy(generate_anchors(cfg)).to(CARD)
     boxes, scores = candidates(model, cfg, anchors_t, images)
     thr = (cfg.nms_iou_threshold, cfg.nms_score_threshold)
-    got = nms_keep.nms_keep_cuda(boxes, scores, *thr)
+    got = nms_keep.nms_keep(boxes, scores, *thr)
     torch.cuda.synchronize()
     want = nms_keep.nms_keep_reference(boxes, scores, *thr)
     valid = scores > cfg.nms_score_threshold
@@ -882,6 +923,9 @@ def trained_path(seeded_cands) -> dict:
                              "device-cached run's")
 
     unfolded, _ = _serve_counted(argv + ["--no-fold-bn"])
+    unfolded_kept = dict(results=_host_results(unfolded),
+                         images=np.concatenate(unfolded.images),
+                         mean_ap=unfolded.mean_ap)
     fold_gap = abs(unfolded.mean_ap - run.mean_ap)
     print(f"trained: --no-fold-bn mAP {unfolded.mean_ap!r}, |diff| from the "
           f"folded run {fold_gap:.3g} (gate {FOLD_MAP_GATE})")
@@ -963,7 +1007,7 @@ def trained_path(seeded_cands) -> dict:
     time_serving(bf16_run, images, ((HEADLINE_BATCH, 5),),
                  "mobilenet_v2 trained bf16")
     return dict(launches=launches, launches_bf16=launches_bf16,
-                keep_rows=keep_rows)
+                keep_rows=keep_rows, unfolded=unfolded_kept)
 
 
 # The VOC phase: the trainer CLI on drill trees (tfssd_torch.make_voc_drill)
@@ -1178,6 +1222,374 @@ def voc_profile_and_nans(batch: int, root: str) -> None:
     del losses
 
 
+# The export phase: predict --export of the committed checkpoint, loaded
+# in a fresh process that imports only the ops and utils/export.py.
+EXPORT_DIR = Path("build") / "chip_smoke_export"
+EXPORT_BATCH = 8
+# batches of the artifact served on the CPU in the fresh process, held
+# against the port's CPU path
+EXPORT_CPU_BATCHES = 1
+# the artifact on the card against the eager --no-fold-bn run on the card
+# (the same ATen graph and the same cuDNN kernels: bit-equal expected),
+# and on the CPU against the port's CPU path; boxes and scores, max |diff|
+EXPORT_ATOL = 1e-6
+EXPORT_TIMING_ITERS = 20
+EXPORT_CHILD_TIMEOUT_S = 600
+
+# What the fresh process runs: no module of tfssd_torch.models; the
+# images are preprocessed with models/decoder.py:preprocess_images's ops.
+EXPORT_CHILD = r"""
+import json, sys, time
+import numpy as np
+import torch
+import tfssd_torch.ops.kernels as kernels
+from tfssd_torch.utils.export import load_exported
+
+path, images_path, out_path = sys.argv[1:4]
+batch, cpu_batches = int(sys.argv[4]), int(sys.argv[5])
+blob = open(path, "rb").read()
+images = np.load(images_path)
+
+def pre(x):
+    return x.float() / 255.0 * 2.0 - 1.0
+
+t0 = time.perf_counter()
+serve = load_exported(blob, "cuda")
+load_s = time.perf_counter() - t0
+kernels.nms_keep.LAUNCHES = 0
+card = []
+for b in range(0, len(images), batch):
+    res = serve(pre(torch.from_numpy(images[b:b + batch]).cuda()))
+    card.append([t.cpu().numpy() for t in res])
+torch.cuda.synchronize()
+launches = kernels.nms_keep.LAUNCHES
+cpu_serve = load_exported(blob, "cpu")
+cpu = [[t.numpy() for t in cpu_serve(pre(torch.from_numpy(
+    images[b:b + batch])))] for b in range(0, cpu_batches * batch, batch)]
+fields = type(res)._fields
+np.savez(out_path, **{f"card_{f}": np.concatenate([r[i] for r in card])
+                      for i, f in enumerate(fields)},
+         **{f"cpu_{f}": np.concatenate([r[i] for r in cpu])
+            for i, f in enumerate(fields)})
+print(json.dumps({"launches": launches, "calls": len(card),
+                  "load_s": load_s, "result_type": type(res).__name__,
+                  "model_modules": sorted(
+                      m for m in sys.modules
+                      if m.startswith("tfssd_torch.models"))}))
+"""
+
+
+def _results_map(results: nms.NMSResult, config) -> float:
+    """VOC07 mAP of host NMSResults (B = TRAINED_IMAGES) on the predictor's
+    synthetic evaluation split, as predict.serve scores them."""
+    from tfssd_torch.data.voc import LABELS
+    from tfssd_torch.evaluate import (detections_from_nms_result,
+                                      evaluate_predictions)
+
+    dataset = SyntheticDataset(predict.SYNTHETIC_EVAL_SIZE,
+                               image_size=config.img_size,
+                               seed=predict.SYNTHETIC_EVAL_SEED)
+    n = len(results.valid)
+    host, _ = stage_arrays(TakeDataset(dataset, n), config.max_gt_boxes)
+    gts = [{"boxes": host["boxes"][i], "labels": host["labels"][i],
+            "difficult": host["difficult"][i]} for i in range(n)]
+    dets = detections_from_nms_result(results, num_valid=n)
+    return evaluate_predictions(gts, dets,
+                                num_classes=config.total_labels - 1,
+                                class_names=LABELS)["map"]
+
+
+def _nms_distance(got: nms.NMSResult, want: nms.NMSResult) -> dict:
+    """classes and valid equal or not; boxes' and scores' max |diff|."""
+    return dict(valid=bool(np.array_equal(got.valid, want.valid)),
+                classes=bool(np.array_equal(got.classes, want.classes)),
+                boxes=float(np.abs(got.boxes - want.boxes).max()),
+                scores=float(np.abs(got.scores - want.scores).max()))
+
+
+def _check_nms_distance(d: dict, label: str) -> None:
+    if not (d["valid"] and d["classes"] and d["boxes"] <= EXPORT_ATOL
+            and d["scores"] <= EXPORT_ATOL):
+        raise AssertionError(f"export: {label}: {d} (gate: classes and "
+                             f"valid equal, boxes and scores within "
+                             f"{EXPORT_ATOL})")
+
+
+def export_phase(unfolded: dict) -> dict:
+    """predict --export of the committed checkpoint at its defaults, served
+    by a fresh process on the card (nms_keep launched once per call) and
+    on the CPU; held against the eager --no-fold-bn run of phase 4, the
+    port's CPU path and TRAINED_MAP_JAX; then live against artifact img/s,
+    MobileNetV2 bfloat16 at batch 256."""
+    EXPORT_DIR.mkdir(parents=True, exist_ok=True)
+    path = EXPORT_DIR / "ssd_mobilenet_v2_b8.pt2"
+    argv = ["--export", str(path), "--export-batch", str(EXPORT_BATCH)]
+    t0 = time.perf_counter()
+    if predict.main(argv) is not None:
+        raise AssertionError("predict --export served instead of exporting")
+    export_s = time.perf_counter() - t0
+    size = path.stat().st_size
+    images = unfolded["images"]
+    images_path = EXPORT_DIR / "images.npy"
+    out_path = EXPORT_DIR / "results.npz"
+    np.save(images_path, images)
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-c", EXPORT_CHILD, str(path), str(images_path),
+         str(out_path), str(EXPORT_BATCH), str(EXPORT_CPU_BATCHES)],
+        cwd=ROOT, capture_output=True, text=True,
+        timeout=EXPORT_CHILD_TIMEOUT_S)
+    child_s = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"export: the fresh process failed:\n"
+                             f"{proc.stderr[-4000:]}")
+    report = json.loads(proc.stdout.strip().splitlines()[-1])
+    print(f"export: predict.main({argv}) wrote {size / 2**20:.2f} MiB in "
+          f"{export_s:.1f} s; fresh process ({child_s:.1f} s, load "
+          f"{report['load_s']:.2f} s): {report['calls']} calls of "
+          f"{EXPORT_BATCH} on the card, nms_keep launches="
+          f"{report['launches']}, result {report['result_type']}, "
+          f"tfssd_torch.models modules imported {report['model_modules']}")
+    if (report["launches"] != report["calls"]
+            or report["calls"] * EXPORT_BATCH != len(images)
+            or report["model_modules"]
+            or report["result_type"] != "NMSResult"):
+        raise AssertionError(f"export: the fresh process's report {report}")
+    with np.load(out_path) as out:
+        card = nms.NMSResult(*(out[f"card_{f}"] for f in nms.NMSResult._fields))
+        cpu = nms.NMSResult(*(out[f"cpu_{f}"] for f in nms.NMSResult._fields))
+    eager = _concat(unfolded["results"])
+    d_card = _nms_distance(card, eager)
+    artifact_map = _results_map(card, get_hyper_params("mobilenet_v2"))
+    gap = abs(artifact_map - TRAINED_MAP_JAX)
+    print(f"export: artifact on the card against the eager --no-fold-bn run "
+          f"({len(images)} images): {d_card} (bit-equal: "
+          f"{d_card['boxes'] == d_card['scores'] == 0.0}); mAP "
+          f"{artifact_map!r} (eager unfolded {unfolded['mean_ap']!r}), "
+          f"|diff| from the JAX predictor's {gap:.3g} (gate "
+          f"{TRAINED_MAP_GATE})")
+    _check_nms_distance(d_card, "card against eager")
+    if gap > TRAINED_MAP_GATE:
+        raise AssertionError(f"export: artifact mAP {artifact_map} is {gap} "
+                             f"from {TRAINED_MAP_JAX}")
+    cfg, cpu_model = predict.load_model("mobilenet_v2", str(TRAINED_DIR),
+                                        device="cpu", fold_bn=False)
+    anchors = torch.from_numpy(generate_anchors(cfg))
+    n_cpu = EXPORT_CPU_BATCHES * EXPORT_BATCH
+    with torch.no_grad():
+        deltas, logits = cpu_model(preprocess_images(torch.from_numpy(
+            images[:n_cpu])))
+        cpu_eager = decode_predictions(anchors, deltas, logits, cfg)
+    d_cpu = _nms_distance(cpu, nms.NMSResult(*(t.numpy()
+                                               for t in cpu_eager)))
+    print(f"export: artifact on the CPU against the port's CPU path "
+          f"({n_cpu} images): {d_cpu}")
+    _check_nms_distance(d_cpu, "CPU against the port's CPU path")
+    timing = time_export(EXPORT_DIR / "ssd_mobilenet_v2_bf16_b256.pt2")
+    return dict(launches=report["launches"], size_mib=size / 2**20,
+                export_s=export_s, card=d_card, cpu=d_cpu,
+                mean_ap=artifact_map, **timing)
+
+
+def time_export(path: Path) -> dict:
+    """Live against artifact img/s (tools/export_bench.py's cell):
+    MobileNetV2 bfloat16, seeded weights, BatchNorm unfolded, batch
+    HEADLINE_BATCH of images in [-1, 1], CUDA events around
+    EXPORT_TIMING_ITERS calls, in turns live, artifact, artifact, live."""
+    from tfssd_torch.utils.export import export_predict, load_exported
+
+    cfg, model = predict.load_model("mobilenet_v2", None, SEED, CARD,
+                                    compute_dtype=BF16, fold_bn=False)
+    anchors = generate_anchors(cfg)
+    anchors_t = torch.from_numpy(anchors).to(CARD)
+    x = torch.from_numpy(np.random.default_rng(SEED).uniform(
+        -1, 1, (HEADLINE_BATCH, cfg.img_size, cfg.img_size, 3)).astype(
+            np.float32)).to(CARD)
+
+    def live():
+        with torch.no_grad():
+            deltas, logits = model(x)
+            return decode_predictions(anchors_t, deltas, logits, cfg)
+
+    blob = export_predict(model, anchors, cfg, HEADLINE_BATCH)
+    path.write_bytes(blob)
+    serve = load_exported(path.read_bytes(), "cuda")
+    same = all(torch.equal(a, b) for a, b in zip(live(), serve(x)))
+    readings = {"live": [], "artifact": []}
+    for name in ("live", "artifact", "artifact", "live"):
+        fn = live if name == "live" else (lambda: serve(x))
+        readings[name].append(
+            HEADLINE_BATCH * 1e3 / time_ms(fn, EXPORT_TIMING_ITERS))
+    live_ips = float(np.mean(readings["live"]))
+    art_ips = float(np.mean(readings["artifact"]))
+    print(f"export: MobileNetV2 bf16 batch {HEADLINE_BATCH}: live "
+          f"{readings['live']} img/s, artifact {readings['artifact']} img/s "
+          f"(ratio {art_ips / live_ips:.3f}; {len(blob) / 2**20:.2f} MiB; "
+          f"NMSResults bit-equal {same}; {CARD_LINE})")
+    return dict(live_img_per_s=live_ips, artifact_img_per_s=art_ips,
+                bf16_same=same)
+
+
+# The data-parallel phase: trainer.main under a process group on the one
+# card; cases (a) two gloo ranks sharing cuda:0, (b) NCCL at world size 1.
+DP_DIR = ROOT / "build" / "chip_smoke_dp"
+DP_BATCH = 32
+DP_EPOCHS = 2
+# Two ranks against one process at the global batch, cuDNN deterministic,
+# float32; gates from this script's first reading on an NVIDIA H100 80GB
+# HBM3 at 700 W (PERF.md §6, PR 15). Step 0 differs by rounding only (the
+# ranks' augmentation on 16 rows, BatchNorm's two-pass statistics summed
+# over the ranks against cuDNN's): loss 0, loc / conf 7.7e-7 / 2.3e-7,
+# grad_norm 4.0e-4 relative; gates DP_STEP0_LOSS, DP_STEP0_GRAD_NORM.
+# After Adam's first step the float32 drift of random weights takes over
+# (PR 14: cuDNN's default against deterministic algorithms, 1-2% loss and
+# 14-22% grad_norm after 16 steps): the later steps read loss 1.8%,
+# loc 1.7%, conf 2.4%, grad_norm 10%, the last validation loss 0.6% and
+# the final weights 1.4% in relative norm; DP_LATER holds them at 2-4x.
+# The same distances of the one process run with cuDNN's default
+# algorithms are printed beside them: the float32 drift without any
+# change of semantics.
+DP_STEP0_LOSS = 1e-4
+DP_STEP0_GRAD_NORM = 1e-3
+DP_LATER = {"loss": 5e-2, "loc_loss": 5e-2, "conf_loss": 5e-2,
+            "grad_norm": 0.3, "val_loss": 2e-2, "params": 5e-2}
+
+
+def dp_train(out: str, deterministic: bool = True) -> dict:
+    """trainer.main at DP_BATCH on the card, device-cached, augmentation
+    on, cuDNN deterministic (unless asked for its default algorithms),
+    with the match/encode launch counter set to 0 just before and read
+    just after; in a process group or without one. Runs on each spawned
+    rank (parallel.Group) and in this process."""
+    shard = parallel.current()
+    argv = ["--backbone", "mobilenet_v2", "--device", "cuda",
+            "--batch-size", str(DP_BATCH), "--dataset", "synthetic",
+            "--synthetic-size", "256", "--epochs", str(DP_EPOCHS),
+            "--steps-per-epoch", str(TRAIN_STEPS), "--val-limit", "1",
+            "--device-cache", "on", "--seed", str(SEED),
+            "--model-dir", os.path.join(out, "model"),
+            "--log-dir", os.path.join(out, "logs")]
+    before = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = deterministic
+    try:
+        t0 = time.perf_counter()
+        match_encode.LAUNCHES = 0
+        run = trainer.main(argv)
+        torch.cuda.synchronize()
+        launches = match_encode.LAUNCHES
+        seconds = time.perf_counter() - t0
+    finally:
+        torch.backends.cudnn.deterministic = before
+    return dict(rank=shard.rank, world=shard.world,
+                backend=(torch.distributed.get_backend()
+                         if shard.distributed else None),
+                launches=launches, steps=run.steps_run,
+                val_batches=run.val_batches, seconds=seconds,
+                metrics=run.step_metrics, val=run.val_losses,
+                params={k: v.detach().cpu().numpy() for k, v in
+                        run.state.model.state_dict().items()})
+
+
+def _dp_distance(got: dict, want: dict) -> dict:
+    """Step 0's and the later steps' largest relative metric differences,
+    the final validation loss's, the final weights' relative norm."""
+    def rel(a, b):
+        return abs(a - b) / max(abs(b), 1e-30)
+
+    keys = ("loss", "loc_loss", "conf_loss", "grad_norm")
+    d = {f"step0_{k}": rel(got["metrics"][0][k], want["metrics"][0][k])
+         for k in keys}
+    d.update({k: max(rel(g[k], w[k]) for g, w in
+                     zip(got["metrics"][1:], want["metrics"][1:]))
+              for k in keys})
+    last = max(want["val"])
+    d["val_loss"] = rel(got["val"][last], want["val"][last])
+    names = [k for k in want["params"] if "num_batches" not in k]
+    a = np.concatenate([got["params"][k].ravel() for k in names])
+    b = np.concatenate([want["params"][k].ravel() for k in names])
+    d["params"] = float(np.linalg.norm(a.astype(np.float64) - b)
+                        / np.linalg.norm(b.astype(np.float64)))
+    d["num_pos_equal"] = all(g["num_pos"] == w["num_pos"] for g, w in
+                             zip(got["metrics"], want["metrics"]))
+    return d
+
+
+def _check_dp_rank(r: dict, label: str) -> None:
+    want = r["steps"] + r["val_batches"]
+    print(f"dp: {label} rank {r['rank']}/{r['world']} ({r['backend']}): "
+          f"{r['steps']} steps + {r['val_batches']} validation batches, "
+          f"match_encode launches={r['launches']}, {r['seconds']:.1f} s, "
+          f"val_losses={r['val']}")
+    if r["launches"] != want or r["steps"] != DP_EPOCHS * TRAIN_STEPS:
+        raise AssertionError(f"dp: {label} rank {r['rank']}: match_encode "
+                             f"launched {r['launches']} times for {want} "
+                             f"train steps + validation batches")
+    values = [v for m in r["metrics"] for v in m.values()] + list(
+        r["val"].values())
+    if not all(math.isfinite(v) for v in values):
+        raise AssertionError(f"dp: {label}: non-finite metric")
+
+
+def dp_phase() -> dict:
+    """Data-parallel training on the one card: one process without a
+    process group, (b) NCCL at world size 1 (bit-equal to it), (a) two
+    gloo ranks sharing cuda:0 (held to it by DP_STEP0_* and DP_LATER);
+    each rank's match/encode launches equal its steps + validation
+    batches."""
+    if DP_DIR.exists():
+        shutil.rmtree(DP_DIR)
+    single = dp_train(str(DP_DIR / "single"))
+    _check_dp_rank(single, "one process")
+    control = _dp_distance(dp_train(str(DP_DIR / "default"), False), single)
+    out = {}
+    # both worlds at once: each rank's cold start (CUDA context, cuDNN
+    # plans) overlaps the other's; their seconds are not timings
+    nccl_group = parallel.Group(dp_train, 1, str(DP_DIR / "nccl1"),
+                                      backend="nccl")
+    gloo_group = parallel.Group(dp_train, 2, str(DP_DIR / "gloo2"),
+                                      backend="gloo")
+    (nccl,) = nccl_group.wait()
+    gloo = gloo_group.wait()
+    _check_dp_rank(nccl, "NCCL world 1")
+    equal = (nccl["metrics"] == single["metrics"]
+             and nccl["val"] == single["val"]
+             and all(np.array_equal(nccl["params"][k], v)
+                     for k, v in single["params"].items()))
+    print(f"dp: NCCL world 1 bit-equal to no process group (every step's "
+          f"metrics, validation losses, final weights): {equal}")
+    if not equal:
+        raise AssertionError("dp: NCCL at world size 1 is not bit-equal to "
+                             "the run without a process group")
+    out["nccl1"] = nccl["launches"]
+    for r in gloo:
+        _check_dp_rank(r, "gloo, two ranks on cuda:0")
+    same = all(np.array_equal(gloo[1]["params"][k], v)
+               for k, v in gloo[0]["params"].items())
+    d = _dp_distance(gloo[0], single)
+    print(f"dp: two gloo ranks against one process at batch {DP_BATCH}: "
+          + ", ".join(f"{k} {v:.3g}" if isinstance(v, float) else
+                      f"{k} {v}" for k, v in d.items())
+          + f"; gates step 0 loss terms {DP_STEP0_LOSS}, grad_norm "
+          f"{DP_STEP0_GRAD_NORM}, later {DP_LATER}; the ranks' weights "
+          f"bit-equal {same}; control, one process with cuDNN's default "
+          f"algorithms against it: "
+          + ", ".join(f"{k} {v:.3g}" if isinstance(v, float) else
+                      f"{k} {v}" for k, v in control.items())
+          + f" ({CARD_LINE})")
+    refused = [k for k in ("loss", "loc_loss", "conf_loss")
+               if d[f"step0_{k}"] > DP_STEP0_LOSS]
+    refused += ["step0_grad_norm"] * (d["step0_grad_norm"]
+                                      > DP_STEP0_GRAD_NORM)
+    refused += [k for k, gate in DP_LATER.items() if d[k] > gate]
+    if refused or not same or not d["num_pos_equal"]:
+        raise AssertionError(f"dp: two ranks against one process: {refused}"
+                             f", weights equal {same}, num_pos equal "
+                             f"{d['num_pos_equal']}")
+    out["gloo2"] = [r["launches"] for r in gloo]
+    out["distance"] = d
+    return out
+
+
 def time_serving(run, images: np.ndarray, batches, label: str) -> dict:
     """img/s of uint8 images on the card -> NMSResult at each batch size
     of `batches`; a batch that does not fit in memory is reported and
@@ -1203,49 +1615,60 @@ def time_serving(run, images: np.ndarray, batches, label: str) -> dict:
 
 def time_keep(boxes, scores, thr, label: str) -> dict:
     """nms_keep and its plain version on one set of candidates: ms per call
-    through the wrapper, device us per launch, host us per call, bound."""
+    through the op (tfssd::nms_keep, the main path's call), device us per
+    launch, host us per call through the op and through the ctypes
+    wrapper alone (nms_keep_cuda), bound."""
     r, k = scores.shape
 
     def call():
-        return nms_keep.nms_keep_cuda(boxes, scores, *thr)
+        return nms_keep.nms_keep(boxes, scores, *thr)
 
     ms = time_ms(call, 200)
     dev_us = graph_us(call)
     h_us = host_us(call)
+    h_ctypes = host_us(lambda: nms_keep.nms_keep_cuda(boxes, scores, *thr))
     plain = time_ms(lambda: nms_keep.nms_keep_reference(boxes, scores, *thr),
                     10)
     bound, bound_by = keep_bound(r, k)
     print(f"timing: nms_keep {label} R={r} K={k}: kernel {ms:.5f} ms/call "
-          f"through the wrapper, device {dev_us:.2f} us per launch "
-          f"(graph replay), host {h_us:.2f} us per call, plain "
-          f"{plain:.5f} ms/call, bound {bound:.6f} ms ({bound_by})")
-    return dict(ms=ms, device_us=dev_us, host_us=h_us, plain_ms=plain,
-                bound_ms=bound, bound_by=bound_by)
+          f"through the op, device {dev_us:.2f} us per launch "
+          f"(graph replay), host {h_us:.2f} us per call through the op, "
+          f"{h_ctypes:.2f} through the ctypes wrapper alone, plain "
+          f"{plain:.5f} ms/call, bound {bound:.6f} ms ({bound_by}; "
+          f"{CARD_LINE})")
+    return dict(ms=ms, device_us=dev_us, host_us=h_us,
+                host_us_ctypes=h_ctypes, plain_ms=plain, bound_ms=bound,
+                bound_by=bound_by)
 
 
 def time_match(anchors, boxes, labels, cfg) -> dict:
     """match_encode and its plain version on one batch: ms per call
-    through the wrapper, device us per launch, host us per call, bound."""
+    through the op (tfssd::match_encode, the main path's call), device us
+    per launch, host us per call through the op and through the ctypes
+    wrapper alone (match_encode_cuda), bound."""
     args = (anchors, boxes, labels, cfg.iou_threshold, cfg.variances)
 
     def call():
-        return match_encode.match_encode_cuda(*args)
+        return match_encode.match_encode(anchors, boxes, labels, cfg)
 
     ms = time_ms(call, 200)
     dev_us = graph_us(call)
     h_us = host_us(call)
+    h_ctypes = host_us(lambda: match_encode.match_encode_cuda(*args))
     plain = time_ms(lambda: matching.match_targets(*args), 20)
     b, g = labels.shape
     n = anchors.shape[0]
     bound = match_bound(n, labels)
     print(f"timing: match_encode B={b} N={n} G={g} real gts "
-          f"{bound['real_gts']}: kernel {ms:.5f} ms/call, device "
-          f"{dev_us:.2f} us per launch (graph replay), host {h_us:.2f} us "
-          f"per call, plain {plain:.5f} ms/call, bound "
+          f"{bound['real_gts']}: kernel {ms:.5f} ms/call through the op, "
+          f"device {dev_us:.2f} us per launch (graph replay), host "
+          f"{h_us:.2f} us per call through the op, {h_ctypes:.2f} through "
+          f"the ctypes wrapper alone, plain {plain:.5f} ms/call, bound "
           f"{bound['bound_ms']:.6f} ms ({bound['bound_by']}; padded pairs "
-          f"{bound['bound_ms_padded']:.6f} ms, {bound['bound_by_padded']})")
-    return dict(ms=ms, device_us=dev_us, host_us=h_us, plain_ms=plain,
-                **bound)
+          f"{bound['bound_ms_padded']:.6f} ms, {bound['bound_by_padded']}; "
+          f"{CARD_LINE})")
+    return dict(ms=ms, device_us=dev_us, host_us=h_us,
+                host_us_ctypes=h_ctypes, plain_ms=plain, **bound)
 
 
 def train_path(backbone: str, batch: int, flags: Sequence[str] = ()) -> int:
@@ -1803,6 +2226,16 @@ def main() -> int:
     voc_profile_and_nans(trained["mobilenet_v2"][0], roots[300])
     print(f"voc: phase took {time.perf_counter() - t_voc:.1f} s")
 
+    section("4c. export")
+    t_phase = time.perf_counter()
+    exported = export_phase(trained_run["unfolded"])
+    print(f"export: phase took {time.perf_counter() - t_phase:.1f} s")
+
+    section("4d. data parallel")
+    t_phase = time.perf_counter()
+    dp = dp_phase()
+    print(f"dp: phase took {time.perf_counter() - t_phase:.1f} s")
+
     section("5. timing")
     fits = time_serving(run, images[64], ((PATH_BATCH, 30), (64, 10)),
                         "mobilenet_v2")
@@ -1852,7 +2285,8 @@ def main() -> int:
     print(f"chip_smoke: whole run {time.perf_counter() - t_start:.1f} s")
     r_path = PATH_BATCH * (cfg.total_labels - 1)
     path_row, big_row = rows[r_path], rows[max(rows)]
-    timed = ("ms", "device_us", "host_us", "plain_ms", "bound_ms")
+    timed = ("ms", "device_us", "host_us", "host_us_ctypes", "plain_ms",
+             "bound_ms")
     match_timed = timed + ("bound_ms_padded", "real_gts")
     entry = {
         "name": "nms_keep", "route": "cuda",
@@ -1872,6 +2306,9 @@ def main() -> int:
         entry[f"launches_bf16_{name}"] = bf16_launches[name]
     entry["launches_trained_mobilenet_v2"] = trained_run["launches"]
     entry["launches_trained_bf16_mobilenet_v2"] = trained_run["launches_bf16"]
+    entry["launches_export_fresh_process"] = exported["launches"]
+    entry.update({f"export_{k}": exported[k] for k in (
+        "live_img_per_s", "artifact_img_per_s", "size_mib")})
     for r, row in trained_run["keep_rows"].items():
         entry.update({f"{key}_trained_R{r}": row[key] for key in timed})
     b, g = m_labels.shape
@@ -1900,6 +2337,9 @@ def main() -> int:
     for name, runs in voc.items():
         for label, reading in runs.items():
             match_entry[f"launches_voc_{name}_{label}"] = reading.launches
+    match_entry["launches_dp_nccl1"] = dp["nccl1"]
+    for rank, n in enumerate(dp["gloo2"]):
+        match_entry[f"launches_dp_gloo2_rank{rank}"] = n
     print(json.dumps({"kernels": [entry, match_entry]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

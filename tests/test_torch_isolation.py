@@ -39,7 +39,9 @@ for name in ("ops.matching", "ops.kernels.match_encode", "ops.losses",
              # the serving CLI's slice: the orbax reader, VOC and drawing
              "utils.zstd", "utils.ocdbt", "data.voc", "utils.drawing",
              # the training CLI's slice: tracing, the VOC drill writer
-             "utils.profiling", "make_voc_drill"):
+             "utils.profiling", "make_voc_drill",
+             # export and data parallelism
+             "utils.export", "parallel"):
     assert "tfssd_torch." + name in sys.modules, name
 leaked = sorted(n for n in sys.modules
                 if n.split(".")[0] in {BLOCKED!r} and sys.modules[n] is not None)

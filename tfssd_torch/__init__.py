@@ -9,7 +9,8 @@ standard library only. Its structure mirrors the JAX package's file names:
   ops/nms.py           combined per-class NMS
   ops/matching.py      gt matching + target encoding (plain version)
   ops/losses.py        hard-negative-mined SSD loss
-  ops/kernels/         hand-written CUDA kernels, their plain versions, build
+  ops/kernels/         hand-written CUDA kernels as custom ops, their plain
+                       versions, build
   models/              MobileNetV2 and VGG16 (SSD300, SSD512) trunks +
                        extras, multibox head, SSD, decoder
   utils/fold_bn.py     BatchNorm folding for serving
@@ -21,6 +22,7 @@ standard library only. Its structure mirrors the JAX package's file names:
   utils/metrics.py     JSONL metrics log, step timer
   utils/io.py          CLI arguments, model and log paths, --data-root
   utils/drawing.py     detections drawn on images (PIL, lazily)
+  utils/export.py      the predict path as one torch.export artifact
   data/                synthetic scenes, VOC roots and image folders,
                        padding/batching, staging, augmentation on the
                        device
@@ -28,6 +30,7 @@ standard library only. Its structure mirrors the JAX package's file names:
   evaluate.py          VOC mAP
   predict.py           the serving CLI (python -m tfssd_torch.predict)
   trainer.py           the training CLI (python -m tfssd_torch.trainer)
+  parallel.py          data parallelism over torch.distributed (torchrun)
   profile_serving.py   where the serving time goes on the card
   profile_train.py     where a train step's time goes on the card
 

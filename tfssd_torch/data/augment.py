@@ -313,10 +313,23 @@ def apply_draws(images: torch.Tensor, boxes: torch.Tensor,
     return images, boxes, labels
 
 
+def take_rows(d: AugmentDraws, rows: slice) -> AugmentDraws:
+    """The draws of the images in `rows` of the batch."""
+    return AugmentDraws(**{f.name: getattr(d, f.name)[rows]
+                           for f in dataclasses.fields(d)})
+
+
 def augment_batch(gen: torch.Generator, images: torch.Tensor,
-                  boxes: torch.Tensor, labels: torch.Tensor
+                  boxes: torch.Tensor, labels: torch.Tensor,
+                  rank: int = 0, world: int = 1
                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Draw and apply one batch's augmentation (the generator must live on
-    the images' device)."""
-    return apply_draws(images, boxes, labels,
-                       sample_draws(gen, images.shape[0]))
+    the images' device). With `world` > 1 the B images are rank `rank`'s
+    rows of a global batch of world x B: the draws are the global batch's,
+    and its rows rank x B .. (rank + 1) x B - 1 are applied, so each image
+    is augmented as in the single-process run of the global batch."""
+    b = images.shape[0]
+    draws = sample_draws(gen, b * world)
+    if world > 1:
+        draws = take_rows(draws, slice(rank * b, (rank + 1) * b))
+    return apply_draws(images, boxes, labels, draws)

@@ -23,7 +23,7 @@ import time
 from collections import deque
 from concurrent.futures import ThreadPoolExecutor
 from queue import Empty, Full, Queue
-from typing import Dict, Iterable, Iterator, Optional, Sequence
+from typing import Dict, Iterable, Iterator, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -115,7 +115,8 @@ def pad_gt(boxes: np.ndarray, labels: np.ndarray, max_gt: int):
 def batch_examples(dataset: Iterable[Dict], batch_size: int, max_gt: int,
                    *, repeat: bool = False,
                    shuffle_seed: Optional[int] = None,
-                   drop_remainder: bool = True, workers: int = 1
+                   drop_remainder: bool = True, workers: int = 1,
+                   shard: Tuple[int, int] = (0, 1)
                    ) -> Iterator[Dict[str, np.ndarray]]:
     """Yield batches {'image' (B,S,S,3) uint8, 'boxes' (B,G,4) float32,
     'labels' (B,G) int32, 'difficult' (B,G) bool, 'ids', 'num_valid'}.
@@ -124,24 +125,41 @@ def batch_examples(dataset: Iterable[Dict], batch_size: int, max_gt: int,
     pass of `repeat` draws the generator's next one). `workers` > 1
     decodes in that many threads. A seed or workers need a random-access
     dataset (`__len__` and `example(i)`); a plain iterable raises
-    ValueError rather than batch in file order unnoticed."""
+    ValueError rather than batch in file order unnoticed.
+
+    `shard` = (rank, world) with world > 1 yields, of each global batch
+    of `batch_size`, only rank's rows (batch_size // world of them, the
+    rows rank * b .. (rank + 1) * b - 1, parallel.Shard.rows) and decodes
+    no other: every rank yields as many batches, a short last batch
+    padded (and num_valid counting the rank's real rows, possibly 0)."""
+    rank, world = shard
+    if batch_size % world:
+        raise ValueError(f"batch_size {batch_size} does not divide into "
+                         f"{world} ranks")
     rng = (np.random.default_rng(shuffle_seed)
            if shuffle_seed is not None else None)
     random_access = hasattr(dataset, "example")
-    if not random_access and (shuffle_seed is not None or workers > 1):
+    if not random_access and (shuffle_seed is not None or workers > 1
+                              or world > 1):
         raise ValueError(
-            "shuffle_seed/workers require a random-access dataset "
+            "shuffle_seed/workers/shard require a random-access dataset "
             "(with .example); got a plain iterable")
 
-    def one_pass():
-        if not random_access:
-            return iter(dataset)
-        order = (rng.permutation(len(dataset)) if rng is not None
-                 else np.arange(len(dataset)))
+    def decode(order):
         if workers > 1:
             return _parallel_examples(dataset, order, workers)
         return (dataset.example(int(i)) for i in order)
 
+    def one_pass():
+        if not random_access:
+            return iter(dataset)
+        return decode(rng.permutation(len(dataset)) if rng is not None
+                      else np.arange(len(dataset)))
+
+    if world > 1:
+        yield from _rank_batches(dataset, batch_size, max_gt, rng, repeat,
+                                 drop_remainder, rank, world, decode)
+        return
     for _ in (itertools.count() if repeat else range(1)):
         buf = []
         for ex in one_pass():
@@ -151,6 +169,31 @@ def batch_examples(dataset: Iterable[Dict], batch_size: int, max_gt: int,
                 buf = []
         if buf and not drop_remainder:
             yield _collate(buf, max_gt, pad_to=batch_size)
+
+
+def _rank_batches(dataset, batch_size: int, max_gt: int, rng, repeat: bool,
+                  drop_remainder: bool, rank: int, world: int, decode
+                  ) -> Iterator[Dict[str, np.ndarray]]:
+    """batch_examples' batches of one rank (see there)."""
+    local = batch_size // world
+    for _ in (itertools.count() if repeat else range(1)):
+        n = len(dataset)
+        order = rng.permutation(n) if rng is not None else np.arange(n)
+        n_batches = n // batch_size if drop_remainder else -(-n //
+                                                             batch_size)
+        mine = [order[g * batch_size + rank * local:
+                      g * batch_size + (rank + 1) * local]
+                for g in range(n_batches)]
+        examples = decode(np.concatenate(mine) if mine else order[:0])
+        for rows in mine:
+            buf = list(itertools.islice(examples, len(rows)))
+            if buf:
+                yield _collate(buf, max_gt, pad_to=local)
+            else:
+                # this rank's part of the padded last batch is all padding
+                out = _allocate(local, dataset.example(0)["image"], max_gt)
+                out["num_valid"] = 0
+                yield out
 
 
 def _allocate(total: int, image: np.ndarray, max_gt: int) -> Dict:

@@ -35,6 +35,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from tfssd_torch import parallel
+
 BN_EPSILON = 1e-3
 BN_MOMENTUM = 0.99  # Flax convention; SSDConfig.bn_momentum's default
 
@@ -133,13 +135,20 @@ class FlaxBatchNorm2d(nn.BatchNorm2d):
 
     While `frozen` (batch_stats_frozen: the recompute of a rematerialised
     forward) train mode normalises as before but leaves the running
-    statistics and the count alone: Flax updates them once a step."""
+    statistics and the count alone: Flax updates them once a step.
+
+    Under data parallelism (a process group of more than one rank,
+    tfssd_torch/parallel.py) train mode takes the global batch's
+    statistics, as the JAX step's BatchNorm does over a sharded batch
+    under jit: _global_batch."""
 
     frozen = False
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training:
             return super().forward(x)
+        if parallel.current().world > 1:
+            return self._global_batch(x)
         n = x.numel() // x.shape[1]
         if n == 1:
             return self._single_value(x)
@@ -159,6 +168,30 @@ class FlaxBatchNorm2d(nn.BatchNorm2d):
         if not self.frozen:
             with torch.no_grad():
                 torch.div(var, unbias, out=self.running_var)
+                self.num_batches_tracked.add_(1)
+        return y
+
+    def _global_batch(self, x: torch.Tensor) -> torch.Tensor:
+        """Train mode over the global batch of every rank's equal shard,
+        in two passes as F.batch_norm takes them: the per-channel sum of x
+        summed over the ranks gives the mean, then the sum of (x - mean)^2
+        the biased variance; both all-reduces are differentiated by
+        autograd (their backward sums the ranks' gradients). Then Flax's
+        formula, y = (x - mean) * rsqrt(var + eps) * scale + bias, and the
+        running statistics updated with that mean and biased variance."""
+        c = x.shape[1]
+        n = x.numel() // c * torch.distributed.get_world_size()
+        mean = parallel.all_reduce_autograd(x.sum(dim=(0, 2, 3))) / n
+        centred = x - mean.view(1, -1, 1, 1)
+        var = parallel.all_reduce_autograd(
+            (centred * centred).sum(dim=(0, 2, 3))) / n
+        mul = torch.rsqrt(var + self.eps) * self.weight
+        y = centred * mul.view(1, -1, 1, 1) + self.bias.view(1, -1, 1, 1)
+        if not self.frozen:
+            with torch.no_grad():
+                keep = 1.0 - self.momentum
+                self.running_mean.mul_(keep).add_(mean * self.momentum)
+                self.running_var.mul_(keep).add_(var * self.momentum)
                 self.num_batches_tracked.add_(1)
         return y
 

@@ -23,17 +23,20 @@ the outputs, and calls the library with the raw handle of the current
 stream of the tensors' device; the C side switches the current device only
 if it differs. It reads nothing back from the device.
 
-`match_encode` dispatches by device: a CPU tensor goes to the plain
-version (ops/matching.py), a CUDA tensor to the kernel, which raises if it
-cannot run. There is no fallback from one to the other. The force-match
-step (config.force_match_for_gt) is a plain PyTorch post-pass on either
-device, as in the JAX package.
+The custom operator `tfssd::match_encode` (torch.library) dispatches by
+device: its CPU implementation is the plain version (ops/matching.py), its
+CUDA implementation the kernel, which raises if it cannot run, and a fake
+implementation gives the outputs' shapes for tracing. There is no fallback
+from one to the other and no Python device switch on the path. The
+force-match step (config.force_match_for_gt, a `bool` of the op's schema)
+is a plain PyTorch post-pass after the kernel, as in the JAX package; the
+plain version folds it into its own matching.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Tuple
+from typing import Sequence, Tuple
 
 import torch
 
@@ -128,27 +131,48 @@ def match_encode_cuda(anchors: torch.Tensor, gt_boxes: torch.Tensor,
     return deltas, labels
 
 
+@torch.library.custom_op("tfssd::match_encode", mutates_args=(),
+                         device_types="cpu")
+def match_encode_op(anchors: torch.Tensor, gt_boxes: torch.Tensor,
+                    gt_labels: torch.Tensor, iou_threshold: float,
+                    variances: Sequence[float], force_match_for_gt: bool
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Targets (deltas (B, N, 4), labels (B, N) int32) through the
+    dispatcher: the plain matcher for CPU tensors (this body), the CUDA
+    kernel (+ the force-match post-pass) for CUDA tensors."""
+    _check(anchors, gt_boxes, gt_labels)
+    return matching.match_targets(anchors, gt_boxes, gt_labels,
+                                  iou_threshold, tuple(variances),
+                                  force_match_for_gt)
+
+
+@match_encode_op.register_kernel("cuda")
+def _match_encode_op_cuda(anchors, gt_boxes, gt_labels, iou_threshold,
+                          variances, force_match_for_gt):
+    deltas, labels = match_encode_cuda(anchors, gt_boxes, gt_labels,
+                                       iou_threshold, variances)
+    if force_match_for_gt:
+        deltas, labels = matching.force_match(
+            deltas, labels, anchors, gt_boxes, gt_labels, tuple(variances))
+    return deltas, labels
+
+
+@match_encode_op.register_fake
+def _match_encode_op_fake(anchors, gt_boxes, gt_labels, iou_threshold,
+                          variances, force_match_for_gt):
+    _check(anchors, gt_boxes, gt_labels)
+    b, n = gt_labels.shape[0], anchors.shape[0]
+    return anchors.new_empty((b, n, 4)), gt_labels.new_empty((b, n))
+
+
 def match_encode(anchors: torch.Tensor, gt_boxes: torch.Tensor,
                  gt_labels: torch.Tensor, config: SSDConfig
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Targets (deltas (B, N, 4), labels (B, N) int32) by device: the CUDA
-    kernel (+ the force-match post-pass) for CUDA tensors, the plain
-    matcher for CPU tensors."""
-    if anchors.device.type == "cuda":
-        deltas, labels = match_encode_cuda(anchors, gt_boxes, gt_labels,
-                                           config.iou_threshold,
-                                           config.variances)
-        if config.force_match_for_gt:
-            deltas, labels = matching.force_match(
-                deltas, labels, anchors, gt_boxes, gt_labels,
-                config.variances)
-        return deltas, labels
-    if anchors.device.type == "cpu":
-        _check(anchors, gt_boxes, gt_labels)
-        return matching.match_targets(
-            anchors, gt_boxes, gt_labels, config.iou_threshold,
-            config.variances, config.force_match_for_gt)
-    raise ValueError(f"no match_encode for device {anchors.device}")
+    """Targets (deltas (B, N, 4), labels (B, N) int32) of `config`'s
+    matcher, by tfssd::match_encode."""
+    return match_encode_op(anchors, gt_boxes, gt_labels,
+                           config.iou_threshold, list(config.variances),
+                           config.force_match_for_gt)
 
 
 def match_batch(anchors: torch.Tensor, gt_boxes: torch.Tensor,

@@ -26,6 +26,7 @@ from __future__ import annotations
 from typing import NamedTuple, Tuple
 
 import torch
+from torch.utils import _pytree
 
 from tfssd_torch.ops.kernels.nms_keep import nms_keep
 
@@ -35,6 +36,14 @@ class NMSResult(NamedTuple):
     scores: torch.Tensor   # (B, max_total), 0 on padding
     classes: torch.Tensor  # (B, max_total) int32, 0-based, -1 on padding
     valid: torch.Tensor    # (B,) int32 number of valid rows
+
+
+# An exported predict (utils/export.py) returns an NMSResult: its output
+# spec names the type by this stable name, so a process that loads the
+# artifact rebuilds the same type (the JAX package registers its NMSResult
+# under a stable name for its own export, for the same reason).
+_pytree._register_namedtuple(
+    NMSResult, serialized_type_name="tfssd_torch.ops.nms.NMSResult")
 
 
 def top_indices(x: torch.Tensor, k: int) -> torch.Tensor:

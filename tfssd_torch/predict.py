@@ -1,7 +1,7 @@
 """Serving entry point: weights -> (folded) SSD -> batched predict -> VOC mAP.
 
-Port of the repository's predictor.py, flag for flag (but --export,
---export-batch and --port-h5), run as
+Port of the repository's predictor.py, flag for flag (but --port-h5),
+run as
 
     python -m tfssd_torch.predict [--device cpu]
     python -m tfssd_torch.predict --dataset voc --data-root VOC2007 \
@@ -11,6 +11,8 @@ Port of the repository's predictor.py, flag for flag (but --export,
     python -m tfssd_torch.predict --backbone vgg16 --limit 32 --batch-size 8
     python -m tfssd_torch.predict --random-weights --seed 0 ...
     python -m tfssd_torch.predict --weights ssd_mobilenet_v2_7680.npz ...
+    python -m tfssd_torch.predict --export ssd.pt2 [--export-batch 8]
+    torchrun --nproc_per_node=N -m tfssd_torch.predict ...
 
 --backbone is a config name of get_hyper_params: mobilenet_v2 and vgg16
 (SSD300), vgg16_512 (SSD512).
@@ -46,6 +48,21 @@ compute_dtype="bfloat16") + serve is the bfloat16 serving configuration of
 the JAX benchmark (BN folded, backbone and heads in bfloat16, decode and
 NMS in float32). It runs on the card unless --device cpu is given, and
 raises when there is no card.
+
+Export. --export PATH writes the whole predict path (forward, decode and
+NMS, the loaded weights inside, BatchNorm left unfolded as the JAX
+predictor leaves it) for float32 images in [-1, 1] at --export-batch
+(default --batch-size) as one torch.export artifact
+(utils/export.py:export_predict), prints its size and exits; a process
+with tfssd_torch.ops.kernels and utils/export.py serves it on the card or
+the CPU (load_exported), the NMS through tfssd::nms_keep.
+
+Data parallelism (tfssd_torch/parallel.py), as the JAX predictor shards
+each batch over every visible device: under torchrun each rank serves its
+rows of every batch (--batch-size must divide into the ranks; otherwise
+rank 0 serves alone, with the JAX predictor's warning), and the NMSResults
+and ground truth are gathered on every rank; rank 0 computes the mAP and
+draws.
 """
 
 from __future__ import annotations
@@ -59,7 +76,7 @@ from typing import Any, Dict, List, Mapping, Optional, Sequence, Tuple, Union
 import numpy as np
 import torch
 
-from tfssd_torch import get_hyper_params, resolve_device
+from tfssd_torch import get_hyper_params, parallel, resolve_device
 from tfssd_torch.config import SSDConfig
 from tfssd_torch.data.loader import (DEVICE_CACHE_BYTES, ConcatDataset,
                                      TakeDataset, batch_examples, prefetch,
@@ -138,9 +155,11 @@ def load_model(backbone: str = "mobilenet_v2", weights: Weights = None,
 class ServingRun:
     """What one serving run produced, per batch: the uint8 images that went
     in (padded to the batch size), the served rows' ids, the NMSResult (on the
-    serving device) and the count of real rows; the model's (deltas,
-    logits) of the first OUTPUT_BATCHES_KEPT batches; the mAP (None where
-    not evaluated) and the throughput."""
+    serving device) and the count of real rows, each of the whole batch
+    (gathered from every rank under data parallelism); the model's
+    (deltas, logits) of the first OUTPUT_BATCHES_KEPT batches (this rank's
+    rows); the mAP (None where not evaluated, and on ranks other than 0)
+    and the throughput."""
 
     config: SSDConfig
     model: SSD
@@ -154,6 +173,7 @@ class ServingRun:
     num_valid: List[int] = dataclasses.field(default_factory=list)
     mean_ap: Optional[float] = None
     img_per_s: Optional[float] = None
+    shard: parallel.Shard = parallel.SINGLE
 
 
 def _accumulate_batch(res: NMSResult, nv: int, rows: Dict, gts: list,
@@ -169,17 +189,22 @@ def _accumulate_batch(res: NMSResult, nv: int, rows: Dict, gts: list,
 
 def serve(model: SSD, config: SSDConfig, dataset, batch_size: int,
           limit: Optional[int] = None, *, device_cache: bool = True,
-          workers: int = 1, evaluate: bool = True) -> ServingRun:
+          workers: int = 1, evaluate: bool = True,
+          shard: parallel.Shard = parallel.SINGLE) -> ServingRun:
     """Predict `dataset` (its first `limit` examples) in batches on the
     model's device and, where `evaluate`, score the detections (VOC07
     mAP@0.5). `device_cache` stages the split's uint8 images on the device
     once (a random-access dataset: __len__ and example(i)); otherwise
     batches are decoded by `workers` threads and streamed. Prints the
-    throughput line, first batch excluded."""
+    throughput line, first batch excluded. Under data parallelism
+    (`shard`) each rank predicts its rows of every batch (the device cache
+    stages the whole split on every rank; the streamed feed decodes only
+    the rank's rows), the results are gathered, and rank 0 scores them."""
     device = next(model.parameters()).device
     anchors = generate_anchors(config)
     anchors_t = torch.from_numpy(anchors).to(device)
-    run = ServingRun(config, model, anchors, device_cache)
+    run = ServingRun(config, model, anchors, device_cache, shard=shard)
+    lead = shard.rank == 0
 
     def predict(x: torch.Tensor) -> NMSResult:
         with torch.no_grad():
@@ -187,7 +212,6 @@ def serve(model: SSD, config: SSDConfig, dataset, batch_size: int,
             res = decode_predictions(anchors_t, deltas, logits, config)
         if len(run.outputs) < OUTPUT_BATCHES_KEPT:
             run.outputs.append((deltas, logits))
-        run.results.append(res)
         return res
 
     gts: list = []
@@ -201,17 +225,20 @@ def serve(model: SSD, config: SSDConfig, dataset, batch_size: int,
                                workers=workers, pad_to_multiple=batch_size)
         staged = torch.from_numpy(host["image"]).to(device)
         n_batches = -(-n // batch_size)
-        seconds = 0.0
+        mine = shard.rows(batch_size)
+        seconds, local = 0.0, []
         for b in range(n_batches):
             # the first batch pays one-time set-up (cuDNN plans) and stays
             # out of the timed window, as in the JAX predictor
             if b == 1:
                 _sync(device)
                 t0 = time.perf_counter()
-            predict(staged[b * batch_size:(b + 1) * batch_size])
+            rows = staged[b * batch_size:(b + 1) * batch_size]
+            local.append(predict(rows[mine]))
         if n_batches > 1:
             _sync(device)
             seconds = time.perf_counter() - t0
+        run.results = [parallel.gather_results(r, shard) for r in local]
         for b, res in enumerate(run.results):
             rows = {k: host[k][b * batch_size:(b + 1) * batch_size]
                     for k in ("image", "boxes", "labels", "difficult",
@@ -225,11 +252,15 @@ def serve(model: SSD, config: SSDConfig, dataset, batch_size: int,
     else:
         timer, reals, seen = StepTimer(skip=1), [], 0
         timer.start()
-        for batch in prefetch(batch_examples(dataset, batch_size,
-                                             config.max_gt_boxes,
-                                             drop_remainder=False,
-                                             workers=workers)):
-            res = _host(predict(torch.from_numpy(batch["image"]).to(device)))
+        for batch in prefetch(batch_examples(
+                dataset, batch_size, config.max_gt_boxes,
+                drop_remainder=False, workers=workers,
+                shard=(shard.rank, shard.world))):
+            res = parallel.gather_results(
+                predict(torch.from_numpy(batch["image"]).to(device)), shard)
+            run.results.append(res)
+            res = _host(res)
+            batch = _gather_rows(batch, shard)
             timer.tick()
             nv = batch["num_valid"]
             if limit is not None:
@@ -246,17 +277,32 @@ def serve(model: SSD, config: SSDConfig, dataset, batch_size: int,
         p50 = timer.summary().get("p50_s")
         feed = "streamed" + (f", p50 batch {p50 * 1e3:.2f} ms"
                              if p50 is not None else "")
-    if run.img_per_s is not None:
+    if run.img_per_s is not None and lead:
         name = (torch.cuda.get_device_name(device) if device.type == "cuda"
                 else "cpu")
+        ranks = f", {shard.world} ranks" if shard.world > 1 else ""
         print(f"inference: {run.img_per_s:.1f} img/s ({feed}, batch="
               f"{batch_size}, {sum(run.num_valid)} images, first batch "
-              f"excluded, padded rows not counted, device={name})")
-    if evaluate:
+              f"excluded, padded rows not counted, device={name}{ranks})")
+    if evaluate and lead:
         run.mean_ap = evaluate_predictions(
             gts, dets, num_classes=config.total_labels - 1,
             class_names=LABELS)["map"]
     return run
+
+
+def _gather_rows(batch: Dict, shard: parallel.Shard) -> Dict:
+    """A streamed batch's host rows of every rank, concatenated in rank
+    order (the global batch, its padded rows where they lie)."""
+    if not shard.distributed:
+        return batch
+    keys = ("image", "boxes", "labels", "difficult")
+    parts = parallel.gather_objects(
+        {k: batch[k] for k in keys + ("ids", "num_valid")}, shard)
+    out = {k: np.concatenate([p[k] for p in parts]) for k in keys}
+    out["ids"] = [i for p in parts for i in p["ids"][:p["num_valid"]]]
+    out["num_valid"] = sum(p["num_valid"] for p in parts)
+    return out
 
 
 def _sync(device: torch.device) -> None:
@@ -328,6 +374,15 @@ def build_parser() -> argparse.ArgumentParser:
                    help="seeded random weights (smoke testing)")
     p.add_argument("--seed", type=int, default=0,
                    help="seed of --random-weights")
+    p.add_argument("--export", default=None, metavar="PATH",
+                   help="write the whole predict path (forward + decode + "
+                        "NMS, the loaded weights inside) as one "
+                        "torch.export artifact, then exit; it serves on "
+                        "the card or the CPU without model code "
+                        "(utils/export.py:load_exported)")
+    p.add_argument("--export-batch", type=int, default=None,
+                   help="batch size baked into --export (default: "
+                        "--batch-size)")
     return p
 
 
@@ -346,13 +401,38 @@ def _dataset(args, image_size: int):
                             seed=SYNTHETIC_EVAL_SEED)
 
 
-def main(argv: Optional[Sequence[str]] = None) -> ServingRun:
+def main(argv: Optional[Sequence[str]] = None) -> Optional[ServingRun]:
+    """The CLI; returns the ServingRun, or None after --export (and on a
+    rank that a batch not divisible by the ranks leaves idle)."""
     args = build_parser().parse_args(argv)
     if args.dataset == "voc" and not args.data_root and not args.image_dir:
         raise SystemExit(
             "--dataset voc needs a --data-root VOCdevkit/VOC2007-style "
             "directory; pass --dataset synthetic or --image-dir to run "
             "without VOC")
+    shard, dev, owned = parallel.setup(args.device)
+    try:
+        return _predict(args, shard, dev)
+    finally:
+        parallel.teardown(owned)
+
+
+def _predict(args, shard: parallel.Shard,
+             dev: torch.device) -> Optional[ServingRun]:
+    if shard.world > 1 and (args.batch_size % shard.world or args.image_dir
+                            or args.export):
+        if args.batch_size % shard.world:
+            print(f"WARNING: --batch-size {args.batch_size} does not divide "
+                  f"the {shard.world} ranks; falling back to a single rank "
+                  f"({shard.world - 1} idle) — use a multiple of "
+                  f"{shard.world} for data-parallel inference")
+        elif args.image_dir:
+            print(f"WARNING: --image-dir is served by one rank "
+                  f"({shard.world - 1} idle): a folder has no random "
+                  f"access to split")
+        if shard.rank:
+            return None
+        shard = parallel.SINGLE
     # load_model reads the weights, and stops on a missing checkpoint,
     # before it builds the model.
     weights: Weights = None
@@ -360,8 +440,19 @@ def main(argv: Optional[Sequence[str]] = None) -> ServingRun:
         weights = args.weights
     elif not args.random_weights:
         weights = get_jax_model_path(args.backbone, args.model_dir)
-    cfg, model = load_model(args.backbone, weights, args.seed, args.device,
-                            fold_bn=args.fold_bn)
+    # --export keeps the BatchNorm graph unfolded, as the JAX predictor's
+    cfg, model = load_model(args.backbone, weights, args.seed, dev,
+                            fold_bn=args.fold_bn and not args.export)
+    if args.export:
+        from tfssd_torch.utils.export import export_predict
+
+        batch = args.export_batch or args.batch_size
+        blob = export_predict(model, generate_anchors(cfg), cfg, batch)
+        with open(args.export, "wb") as f:
+            f.write(blob)
+        print(f"exported predict (batch {batch}, weights inside) to "
+              f"{args.export}: {len(blob) / 1e6:.1f} MB")
+        return None
     dataset = _dataset(args, cfg.img_size)
     rows = min(len(dataset), args.limit or len(dataset))
     use_cache = (not args.image_dir and args.device_cache != "off" and
@@ -370,8 +461,8 @@ def main(argv: Optional[Sequence[str]] = None) -> ServingRun:
     run = serve(model, cfg, dataset, args.batch_size, args.limit,
                 device_cache=use_cache,
                 workers=1 if args.image_dir else args.workers,
-                evaluate=not (args.no_eval or args.image_dir))
-    if args.draw:
+                evaluate=not (args.no_eval or args.image_dir), shard=shard)
+    if args.draw and shard.rank == 0:
         drawn = draw_run(run, args.draw, args.output_dir,
                          args.score_threshold)
         print(f"drew {drawn} images into {args.output_dir}")

@@ -17,7 +17,15 @@ Adam(1e-3, eps 1e-8) with the reference's step decay (1e-3 -> 1e-4 ->
 Metrics stay on the device until the caller reads them (with
 utils/profiling.py's enable_debug_nans, each step reads its loss metrics
 and gradient norm before the update and raises FloatingPointError at a
-non-finite one). The device-resident feed (make_cached_train_step)
+non-finite one). Under data parallelism (`shard`, tfssd_torch/
+parallel.py) a rank's step keeps the global batch's semantics: it draws
+the augmentation of the global batch and applies its rows' draws,
+BatchNorm takes the global statistics, the gradients are averaged over the
+ranks before grad_norm is read and Adam steps, and the metrics come back
+global (loss terms averaged, num_pos summed); the cached forms take the
+global batch's row indices and gather the rank's rows. A Shard of one
+rank in a process group communicates and changes no bit. The
+device-resident feed (make_cached_train_step)
 gathers each batch from a uint8 dataset staged on the device, as the JAX
 package's cached path does. The multi-step forms
 (make_multi_train_step, make_cached_multi_train_step) run K steps in one
@@ -37,6 +45,7 @@ from typing import Callable, Dict, List, Tuple
 import numpy as np
 import torch
 
+from tfssd_torch import parallel
 from tfssd_torch.config import SSDConfig
 from tfssd_torch.data.augment import augment_batch
 from tfssd_torch.models.decoder import preprocess_images
@@ -129,10 +138,12 @@ def augment_seed(seed: int, step: int) -> int:
 
 
 def make_train_step(anchors: torch.Tensor, config: SSDConfig,
-                    augment: bool = True, seed: int = 0):
+                    augment: bool = True, seed: int = 0,
+                    shard: parallel.Shard = parallel.SINGLE):
     """(state, batch) -> metrics, updating `state` in place. `batch` =
     {'image' (B,S,S,3) uint8, 'boxes' (B,G,4) float32, 'labels' (B,G)
-    int32} on the anchors' device."""
+    int32} on the anchors' device: the rank's rows of the global batch
+    under data parallelism."""
     gen = torch.Generator(device=anchors.device) if augment else None
 
     def train_step(state: TrainState, batch: Batch) -> Metrics:
@@ -148,8 +159,11 @@ def make_train_step(anchors: torch.Tensor, config: SSDConfig,
         if augment:
             gen.manual_seed(augment_seed(seed, state.step))
             images, gt_boxes, gt_labels = augment_batch(
-                gen, images, gt_boxes, gt_labels)
-        images = images * 2.0 - 1.0
+                gen, images, gt_boxes, gt_labels, shard.rank, shard.world)
+        # a float64 model (the witness of a float32 step) takes the
+        # float32-augmented images in float64; otherwise a no-op
+        images = (images * 2.0 - 1.0).to(torch.promote_types(
+            images.dtype, next(model.parameters()).dtype))
         actual_deltas, actual_labels = match_batch(
             anchors, gt_boxes.contiguous(), gt_labels.contiguous(), config)
         model.train()
@@ -160,6 +174,8 @@ def make_train_step(anchors: torch.Tensor, config: SSDConfig,
                                     config.loc_loss_alpha)
         opt.zero_grad(set_to_none=True)
         total.backward()
+        parallel.all_reduce_grads(model, shard)
+        metrics = parallel.reduce_metrics(metrics, shard)
         grads = [p.grad for p in model.parameters() if p.grad is not None]
         metrics["grad_norm"] = torch.nn.utils.get_total_norm(grads)
         if profiling.debug_nans_enabled():
@@ -176,12 +192,14 @@ def stack_metrics(per_step: List[Metrics]) -> Metrics:
 
 
 def make_multi_train_step(anchors: torch.Tensor, config: SSDConfig,
-                          augment: bool = True, seed: int = 0):
+                          augment: bool = True, seed: int = 0,
+                          shard: parallel.Shard = parallel.SINGLE):
     """(state, superbatch) -> metrics stacked (K,): K train steps in one
     call over a super-batch {'image' (K,B,S,S,3), 'boxes' (K,B,G,4),
     'labels' (K,B,G)} (data/loader.py:stack_batches), each slice through
-    make_train_step as K separate calls would go."""
-    base = make_train_step(anchors, config, augment, seed)
+    make_train_step as K separate calls would go (under data parallelism
+    the rank's (K, B / world) part, parallel.superbatch_rows)."""
+    base = make_train_step(anchors, config, augment, seed, shard)
 
     def multi_step(state: TrainState, superbatch: Batch) -> Metrics:
         k = superbatch["image"].shape[0]
@@ -204,35 +222,42 @@ def gather_rows(data: Batch, idx: torch.Tensor) -> Batch:
 
 
 def make_cached_train_step(anchors: torch.Tensor, config: SSDConfig,
-                           augment: bool = True, seed: int = 0):
+                           augment: bool = True, seed: int = 0,
+                           shard: parallel.Shard = parallel.SINGLE):
     """(state, data, idx) -> metrics: the train step fed by gather_rows
-    from a dataset staged on the device once."""
-    base = make_train_step(anchors, config, augment, seed)
+    from a dataset staged on the device once; idx holds the global
+    batch's rows, of which the rank gathers its own."""
+    base = make_train_step(anchors, config, augment, seed, shard)
 
     def cached_step(state: TrainState, data: Batch,
                     idx: torch.Tensor) -> Metrics:
-        return base(state, gather_rows(data, idx))
+        return base(state, gather_rows(data, idx[shard.rows(len(idx))]))
 
     return cached_step
 
 
 def make_cached_multi_train_step(anchors: torch.Tensor, config: SSDConfig,
-                                 augment: bool = True, seed: int = 0):
+                                 augment: bool = True, seed: int = 0,
+                                 shard: parallel.Shard = parallel.SINGLE):
     """(state, data, idx (K, B)) -> metrics stacked (K,): K train steps in
-    one call over device-resident data, each gathering its own rows."""
-    base = make_train_step(anchors, config, augment, seed)
+    one call over device-resident data, each gathering its own rows (the
+    rank's columns of idx)."""
+    base = make_train_step(anchors, config, augment, seed, shard)
 
     def multi_step(state: TrainState, data: Batch,
                    idx: torch.Tensor) -> Metrics:
-        return stack_metrics([base(state, gather_rows(data, row))
-                              for row in idx])
+        return stack_metrics([
+            base(state, gather_rows(data, row))
+            for row in parallel.superbatch_rows(idx, shard)])
 
     return multi_step
 
 
-def make_eval_step(anchors: torch.Tensor, config: SSDConfig):
+def make_eval_step(anchors: torch.Tensor, config: SSDConfig,
+                   shard: parallel.Shard = parallel.SINGLE):
     """(state, batch) -> metrics: validation loss, no augmentation, the
-    running BatchNorm statistics."""
+    running BatchNorm statistics; the global batch's metrics under data
+    parallelism."""
 
     def eval_step(state: TrainState, batch: Batch) -> Metrics:
         model = state.model
@@ -247,27 +272,29 @@ def make_eval_step(anchors: torch.Tensor, config: SSDConfig):
                                     pred_deltas, pred_logits,
                                     config.neg_pos_ratio,
                                     config.loc_loss_alpha)
-        return metrics
+        return parallel.reduce_metrics(metrics, shard)
 
     return eval_step
 
 
-def make_cached_eval_step(anchors: torch.Tensor, config: SSDConfig):
+def make_cached_eval_step(anchors: torch.Tensor, config: SSDConfig,
+                          shard: parallel.Shard = parallel.SINGLE):
     """(state, data, idx (B,)) -> metrics: the eval step on rows gathered
-    from device-resident data."""
-    base = make_eval_step(anchors, config)
+    from device-resident data (the rank's rows of the global idx)."""
+    base = make_eval_step(anchors, config, shard)
 
     def cached_eval(state: TrainState, data: Batch,
                     idx: torch.Tensor) -> Metrics:
-        return base(state, gather_rows(data, idx))
+        return base(state, gather_rows(data, idx[shard.rows(len(idx))]))
 
     return cached_eval
 
 
-def make_cached_multi_eval_step(anchors: torch.Tensor, config: SSDConfig):
+def make_cached_multi_eval_step(anchors: torch.Tensor, config: SSDConfig,
+                                shard: parallel.Shard = parallel.SINGLE):
     """(state, data, idx (K, B)) -> metrics stacked (K,): the whole
     validation pass over device-resident data, one batch after another."""
-    base = make_cached_eval_step(anchors, config)
+    base = make_cached_eval_step(anchors, config, shard)
 
     def multi_eval(state: TrainState, data: Batch,
                    idx: torch.Tensor) -> Metrics:

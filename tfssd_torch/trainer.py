@@ -6,6 +6,7 @@
         [--steps-per-call K] [--workers 8] [--prefetch-depth 4] \\
         [--profile] [--debug-nans] [--bf16] [--remat] [--resume] \\
         [--device cpu]
+    torchrun --nproc_per_node=N -m tfssd_torch.trainer ...
 
 Each of the JAX package's configurations at full width, 21 labels and 64
 gt rows per image: SSD300-MobileNetV2 (--backbone mobilenet_v2, the
@@ -53,6 +54,17 @@ raises FloatingPointError at the first non-finite one (utils/
 profiling.py). --pallas and --handle-gpu are accepted so that the JAX
 trainer's command lines parse: on the card the match/encode kernel always
 runs. Not ported: --port-h5 (a Keras trunk file; ROADMAP.md).
+
+Data parallelism (tfssd_torch/parallel.py), as the JAX trainer shards its
+batch over every visible device: under torchrun each rank trains on its
+rows of every global batch of --batch-size (which must divide into the
+ranks), in both feeds (the device cache stages the whole split on every
+rank and gathers the rank's rows; the streamed feed decodes only the
+rank's rows), with the global batch's augmentation draws, BatchNorm
+statistics, loss and metrics, and gradients averaged over the ranks
+before Adam. The weights and Adam's state start from rank 0's. Only rank
+0 writes checkpoints, the sidecar, the metrics log and the --profile
+trace; every rank reads the checkpoint on --resume.
 """
 
 from __future__ import annotations
@@ -68,7 +80,7 @@ from typing import Dict, Iterator, List, Optional, Sequence
 import numpy as np
 import torch
 
-from tfssd_torch import get_hyper_params, resolve_device
+from tfssd_torch import get_hyper_params, parallel
 from tfssd_torch.data.loader import (DEVICE_CACHE_BYTES, ConcatDataset,
                                      PrefetchStats, batch_examples, prefetch,
                                      stack_batches, stage_arrays)
@@ -133,8 +145,10 @@ class TrainRun:
     the validation losses per epoch, the validation batches evaluated,
     the checkpoint and log directories, the feed (device_cache,
     steps_per_call, steps_per_epoch), each epoch's seconds (train,
-    validation and checkpoint), the streamed feed's prefetch waits and the
-    end-to-end img/s (None when fewer than two epochs ran)."""
+    validation and checkpoint), the streamed feed's prefetch waits, the
+    end-to-end img/s (None when fewer than two epochs ran) and this
+    process's rank in the data-parallel world. The metrics are the global
+    batch's on every rank."""
 
     state: TrainState
     steps_run: int
@@ -152,6 +166,7 @@ class TrainRun:
     epoch_seconds: List[float] = dataclasses.field(default_factory=list)
     prefetch: PrefetchStats = dataclasses.field(
         default_factory=PrefetchStats)
+    shard: parallel.Shard = parallel.SINGLE
 
 
 def build_parser():
@@ -230,6 +245,13 @@ def _epoch_geometry(args, train_n: int, device_cache: bool):
     return steps_per_epoch, spc
 
 
+def _real_rows(n: int, batch_size: int, n_batches: int) -> int:
+    """Real (unpadded) rows in the first n_batches batches of a set of n
+    rows, the last one padded."""
+    return sum(max(0, min(n - vb * batch_size, batch_size))
+               for vb in range(n_batches))
+
+
 def _host_rows(calls: List[Dict[str, torch.Tensor]]) -> List[Dict]:
     """Per-step metrics of one epoch's calls (scalars or stacked (K,)),
     read from the device in one transfer."""
@@ -243,7 +265,9 @@ def _host_rows(calls: List[Dict[str, torch.Tensor]]) -> List[Dict]:
 
 class _CachedFeed:
     """Both sets staged on the device once (uint8 pixels: augmentation
-    runs per step on the device); each call gathers its rows there."""
+    runs per step on the device); each call gathers its rows there. Under
+    data parallelism every rank stages both sets whole and the steps
+    gather the rank's rows of the global batch's indices."""
 
     def __init__(self, args, train_ds, val_ds, max_gt: int, dev):
         self.args, self.dev = args, dev
@@ -280,20 +304,21 @@ class _CachedFeed:
         idx = torch.arange(n_batches * b, device=self.dev).reshape(
             n_batches, b)
         losses = eval_step(state, self.val, idx)["loss"].tolist()
-        count = sum(max(0, min(self.val_n - vb * b, b))
-                    for vb in range(n_batches))
-        return losses, count
+        return losses, _real_rows(self.val_n, b, n_batches)
 
 
 class _StreamedFeed:
     """Batches decoded on the host in --workers threads and copied to the
     device in a prefetch thread, --prefetch-depth ahead. The copy is a
     plain .to(device) of pageable memory, which returns once the batch is
-    on the device: the step never reads a batch before its copy lands."""
+    on the device: the step never reads a batch before its copy lands.
+    Under data parallelism each rank decodes and copies only its rows of
+    every global batch."""
 
     def __init__(self, args, train_ds, val_ds, max_gt: int, dev,
-                 stats: PrefetchStats):
+                 stats: PrefetchStats, shard: parallel.Shard):
         self.args, self.dev, self.stats = args, dev, stats
+        self.shard = (shard.rank, shard.world)
         self.train_ds, self.val_ds, self.max_gt = train_ds, val_ds, max_gt
 
     def _to_device(self, batches):
@@ -308,7 +333,7 @@ class _StreamedFeed:
         batches = batch_examples(self.train_ds, args.batch_size,
                                  self.max_gt,
                                  shuffle_seed=args.seed * 10_000 + epoch,
-                                 workers=args.workers)
+                                 workers=args.workers, shard=self.shard)
         if spc > 1:
             batches = stack_batches(batches, spc)
         with contextlib.closing(prefetch(self._to_device(batches),
@@ -321,32 +346,46 @@ class _StreamedFeed:
         """(mean loss of each validation batch, real rows), the short last
         batch padded."""
         args = self.args
-        losses, count = [], 0
+        losses = []
         batches = prefetch(self._to_device(batch_examples(
             self.val_ds, args.batch_size, self.max_gt, drop_remainder=False,
-            workers=args.workers)), depth=args.prefetch_depth)
+            workers=args.workers, shard=self.shard)),
+            depth=args.prefetch_depth)
         with contextlib.closing(batches):
-            for batch, num_valid in itertools.islice(batches,
-                                                     args.val_limit):
+            for batch, _ in itertools.islice(batches, args.val_limit):
                 losses.append(eval_step(state, batch)["loss"])
-                count += num_valid
-        return (torch.stack(losses).tolist() if losses else []), count
+        return ((torch.stack(losses).tolist() if losses else []),
+                _real_rows(len(self.val_ds), args.batch_size, len(losses)))
 
 
 def main(argv: Optional[Sequence[str]] = None) -> TrainRun:
     args = build_parser().parse_args(argv)
-    dev = resolve_device(args.device)
+    shard, dev, owned = parallel.setup(args.device)
+    try:
+        return _train(args, shard, dev)
+    finally:
+        parallel.teardown(owned)
+
+
+def _train(args, shard: parallel.Shard, dev: torch.device) -> TrainRun:
+    lead = shard.rank == 0
     cfg = get_hyper_params(
         args.backbone, compute_dtype="bfloat16" if args.bf16 else "float32",
         remat=args.remat)
     print(f"backbone={cfg.backbone} img={cfg.img_size} "
           f"anchors={cfg.total_anchors} device={dev} "
-          f"compute_dtype={cfg.compute_dtype} remat={cfg.remat}")
+          f"compute_dtype={cfg.compute_dtype} remat={cfg.remat} "
+          f"rank={shard.rank}/{shard.world}")
     train_ds, val_ds = make_datasets(args, cfg.img_size)
     if len(train_ds) < args.batch_size:
         raise SystemExit(
             f"training dataset ({len(train_ds)} examples) is smaller than "
             f"--batch-size {args.batch_size}; full batches are required")
+    if args.batch_size % shard.world:
+        raise SystemExit(
+            f"--batch-size {args.batch_size} must be a multiple of the "
+            f"{shard.world} data-parallel ranks (the batch axis is split "
+            f"over the ranks)")
     est_bytes = (len(train_ds) + len(val_ds)) * cfg.img_size ** 2 * 3
     device_cache = (args.device_cache == "on" or
                     (args.device_cache == "auto"
@@ -360,14 +399,15 @@ def main(argv: Optional[Sequence[str]] = None) -> TrainRun:
     anchors = torch.from_numpy(generate_anchors(cfg)).to(dev)
     schedule = make_lr_schedule(steps_per_epoch, args.init_lr)
     state = create_train_state(cfg, args.seed, dev, schedule)
-    step_kw = dict(augment=not args.no_augment, seed=args.seed + 1)
+    step_kw = dict(augment=not args.no_augment, seed=args.seed + 1,
+                   shard=shard)
     if device_cache:
         factory = (make_cached_multi_train_step if spc > 1
                    else make_cached_train_step)
-        eval_step = make_cached_multi_eval_step(anchors, cfg)
+        eval_step = make_cached_multi_eval_step(anchors, cfg, shard)
     else:
         factory = make_multi_train_step if spc > 1 else make_train_step
-        eval_step = make_eval_step(anchors, cfg)
+        eval_step = make_eval_step(anchors, cfg, shard)
     train_step = factory(anchors, cfg, **step_kw)
 
     model_path = get_model_path(args.backbone, args.model_dir)
@@ -388,31 +428,37 @@ def main(argv: Optional[Sequence[str]] = None) -> TrainRun:
                       f"up with the original run")
         ckpt.restore(state)
         print(f"resumed from step {state.step}")
-    with open(meta_path, "w") as f:
-        json.dump(meta, f)
+    parallel.broadcast_state(state.model, state.optimizer, shard)
+    # every rank has read the sidecar before rank 0 rewrites it
+    parallel.barrier(shard)
+    if lead:
+        with open(meta_path, "w") as f:
+            json.dump(meta, f)
 
     waits = PrefetchStats()
     feed = (_CachedFeed(args, train_ds, val_ds, cfg.max_gt_boxes, dev)
             if device_cache else
             _StreamedFeed(args, train_ds, val_ds, cfg.max_gt_boxes, dev,
-                          waits))
+                          waits, shard))
     log_path = get_log_path(args.backbone, args.log_dir)
     run = TrainRun(state, 0, [], {}, 0, model_path, None,
                    log_path=log_path, device_cache=device_cache,
                    steps_per_call=spc, steps_per_epoch=steps_per_epoch,
-                   prefetch=waits)
+                   prefetch=waits, shard=shard)
     total_images = 0
     train_start = None
     debug_nans_before = profiling.enable_debug_nans(args.debug_nans)
     try:
-        with MetricsLogger(log_path) as log:
+        # only rank 0 logs
+        with (MetricsLogger(log_path) if lead
+              else contextlib.nullcontext()) as log:
             start_epoch = state.step // steps_per_epoch
             for epoch in range(start_epoch, args.epochs):
                 t_epoch = time.perf_counter()
                 epoch_steps, epoch_metrics = 0, []
                 calls = []
                 with contextlib.ExitStack() as stack:
-                    if args.profile and epoch == start_epoch:
+                    if args.profile and epoch == start_epoch and lead:
                         # written also when the epoch raises (a NaN halt,
                         # an interrupt): the failing run is when the trace
                         # matters
@@ -434,7 +480,8 @@ def main(argv: Optional[Sequence[str]] = None) -> TrainRun:
                                   f"{steps_per_epoch} loss={m['loss']:.4f} "
                                   f"loc={m['loc_loss']:.4f} "
                                   f"conf={m['conf_loss']:.4f}")
-                            log.log(state.step, m, prefix="train/")
+                            if log is not None:
+                                log.log(state.step, m, prefix="train/")
                     run.step_metrics.extend(_host_rows(calls))
                 run.steps_run += epoch_steps
                 run.train_metrics.extend(epoch_metrics)
@@ -454,9 +501,11 @@ def main(argv: Optional[Sequence[str]] = None) -> TrainRun:
                     print(f"epoch {epoch}: train_loss={tr:.4f} "
                           f"val_loss={val_loss:.4f} "
                           f"lr={schedule(state.step):.2e}")
-                    log.log(state.step, {"val_loss": val_loss,
-                                         "epoch": epoch})
-                    if (epoch + 1) % args.ckpt_every == 0 or last_epoch:
+                    if log is not None:
+                        log.log(state.step, {"val_loss": val_loss,
+                                             "epoch": epoch})
+                    if lead and ((epoch + 1) % args.ckpt_every == 0
+                                 or last_epoch):
                         ckpt.save(state.step, state, val_loss=val_loss)
                 # The end-to-end clock starts after the first epoch (train,
                 # validation and checkpoint), so one-time set-up (cuDNN
@@ -472,6 +521,7 @@ def main(argv: Optional[Sequence[str]] = None) -> TrainRun:
     if train_start is not None and total_images:
         run.e2e_img_per_s = total_images / (time.perf_counter()
                                             - train_start)
+    if run.e2e_img_per_s is not None and lead:
         short = _SHORT.get(args.backbone, args.backbone)
         print(json.dumps({
             "metric": f"train_{short}_e2e_images_per_sec",

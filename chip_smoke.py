@@ -129,9 +129,9 @@ Phases, in order; any failure ends the run with a non-zero exit:
               row beside the seeded weights'. Serving img/s, device-resident
               images, at batches 8, 64 and 256, and bfloat16 at 256.
   4b. voc   — the trainer CLI on VOC directories: drill trees written by
-              tfssd_torch.make_voc_drill under build/ (256 trainval + 64
-              test images at 300 for mobilenet_v2 and vgg16, 128 + 32 at
-              512 for vgg16_512); for each config at its training batch of
+              tfssd_torch.make_voc_drill under build/ (128 trainval + 32
+              test images at 300 for mobilenet_v2 and vgg16 and at 512
+              for vgg16_512: 4 steps and 1 validation batch an epoch); for each config at its training batch of
               phase 3, `trainer.main(["--dataset", "voc", "--data-root",
               <drill>, "--val-split", "test", "--epochs", "2", ...])`
               (a) streamed (--device-cache off --workers 8
@@ -182,10 +182,15 @@ Phases, in order; any failure ends the run with a non-zero exit:
               gloo ranks sharing cuda:0 (16 rows each): step 0's losses and
               grad_norm within DP_STEP0_LOSS / DP_STEP0_GRAD_NORM of the
               one process's, the later steps, the validation loss and the
-              final weights within DP_LATER, num_pos equal at every step,
-              the ranks' weights bit-equal (distances printed). Each
-              rank's match/encode launches, counted from 0, must equal its
-              steps + validation batches.
+              final weights within DP_LATER (float32's drift; the control,
+              one process with cuDNN's default algorithms, printed
+              beside), num_pos equal at every step, the ranks' weights
+              bit-equal; then the same two ranks and one process with the
+              model and Adam in float64, device-cached and streamed, every
+              step, the validation loss and the weights within DP_F64 of
+              the one process's (distances printed). Each rank's
+              match/encode launches, counted from 0, must equal its steps
+              + validation batches in every run.
   5. timing — serving img/s at batch 8 and 64 (device-resident uint8
               images -> NMSResult), for each VGG16 config at batch 8 and
               the largest of 64 / 32 that fits; train ms/step, img/s and
@@ -227,9 +232,10 @@ It exits non-zero without a result when no CUDA device is available, and
 in a directory that holds this script without the tfssd_torch package
 (or without trained/ssd_mobilenet_v2, or without a zstd decoder). It runs
 from the checkout's root and writes nothing outside build/. The whole run
-takes ~390 s on an H100 (PERF.md §6, PR 15): phase 4b ~81-89 s, 4c ~45 s,
-4d ~29 s with its two process groups started together; no earlier phase
-was cut to make room for phases 4-4d.
+takes ~390-445 s on an NVIDIA H100 80GB HBM3 at 700 W (PERF.md §6): phase
+4b ~68 s, 4c ~43-54 s, 4d ~42-51 s with its two process groups started
+together; phase 4b's 300-pixel drill tree was halved to make room for 4d's
+float64 runs.
 """
 
 from __future__ import annotations
@@ -249,7 +255,7 @@ from typing import Sequence
 import numpy as np
 import torch
 
-from tfssd_torch import get_hyper_params, parallel, predict, trainer
+from tfssd_torch import get_hyper_params, parallel, predict, train, trainer
 from tfssd_torch.data.augment import augment_batch
 from tfssd_torch.data.loader import TakeDataset, stage_arrays
 from tfssd_torch.data.synthetic import SyntheticDataset
@@ -1012,8 +1018,10 @@ def trained_path(seeded_cands) -> dict:
 
 # The VOC phase: the trainer CLI on drill trees (tfssd_torch.make_voc_drill)
 # through both feeds and --steps-per-call 2, at each config's training
-# batch. (trainval, test) images of each image size.
-VOC_DRILL = {300: (256, 64), 512: (128, 32)}
+# batch. (trainval, test) images of each image size: at batch 32, 4 steps
+# and 1 validation batch an epoch, enough for --steps-per-call 2 and for
+# the run-to-run floor, and short enough for the script's time.
+VOC_DRILL = {300: (128, 32), 512: (128, 32)}
 VOC_EPOCHS = 2
 # MobileNetV2's diverging run for --debug-nans: Adam moves every weight by
 # ~lr in step 0, so step 1's forward overflows.
@@ -1435,42 +1443,91 @@ def time_export(path: Path) -> dict:
 DP_DIR = ROOT / "build" / "chip_smoke_dp"
 DP_BATCH = 32
 DP_EPOCHS = 2
-# Two ranks against one process at the global batch, cuDNN deterministic,
-# float32; gates from this script's first reading on an NVIDIA H100 80GB
-# HBM3 at 700 W (PERF.md §6, PR 15). Step 0 differs by rounding only (the
-# ranks' augmentation on 16 rows, BatchNorm's two-pass statistics summed
-# over the ranks against cuDNN's): loss 0, loc / conf 7.7e-7 / 2.3e-7,
-# grad_norm 4.0e-4 relative; gates DP_STEP0_LOSS, DP_STEP0_GRAD_NORM.
-# After Adam's first step the float32 drift of random weights takes over
-# (PR 14: cuDNN's default against deterministic algorithms, 1-2% loss and
-# 14-22% grad_norm after 16 steps): the later steps read loss 1.8%,
-# loc 1.7%, conf 2.4%, grad_norm 10%, the last validation loss 0.6% and
-# the final weights 1.4% in relative norm; DP_LATER holds them at 2-4x.
-# The same distances of the one process run with cuDNN's default
-# algorithms are printed beside them: the float32 drift without any
-# change of semantics.
+# Two ranks against one process at the global batch, cuDNN deterministic.
+# In float32 (the trainer as users run it) step 0 differs by rounding only
+# (the ranks' augmentation resamples 16 rows, whose batched matmuls round
+# otherwise than 32 rows'; BatchNorm's two-pass statistics summed over the
+# ranks against cuDNN's): loss 0, loc / conf 7.7e-7 / 2.3e-7, grad_norm
+# 4.0e-4 relative on an NVIDIA H100 80GB HBM3 at 700 W (PERF.md §6);
+# gates DP_STEP0_LOSS, DP_STEP0_GRAD_NORM. Adam's first steps at
+# random weights amplify that rounding as much as a change of cuDNN's
+# algorithms does (the control, printed beside): the later steps read
+# loss 1.8%, conf 2.4%, grad_norm 10%, the weights 1.41% in every run. A
+# first gate of 1e-2 on the weights was refused by that reading; DP_LATER
+# now sits at 2-4x the readings and refuses only a gross fault. The later
+# steps' semantics, both feeds' sharding of epoch 1 included, are held
+# tightly by the float64 runs and DP_F64.
 DP_STEP0_LOSS = 1e-4
 DP_STEP0_GRAD_NORM = 1e-3
 DP_LATER = {"loss": 5e-2, "loc_loss": 5e-2, "conf_loss": 5e-2,
             "grad_norm": 0.3, "val_loss": 2e-2, "params": 5e-2}
+# The same runs with the model and Adam in float64, device-cached and
+# streamed. The augmentation stays float32, as the step computes it, and
+# its resample rounds by batch size on the card (16 rows against 32: 2.4e-7
+# apart), which Adam's first steps at random weights amplify to the
+# float32 run's 1.4% in the weights; so the one process augments its 32
+# rows as the two ranks do (_augment_as_two_ranks). Then the runs differ
+# by float64 rounding and the float32 loss: on an NVIDIA H100 80GB HBM3
+# at 700 W (PERF.md §6) the loss terms read <= 1.16e-7 (the loss
+# is computed in float32), grad_norm 0 at every step, the validation loss
+# 0, the weights 1.59e-10 in relative norm. Gates: the loss terms at
+# float32's rounding, the rest ~10x the reading or far below any fault.
+DP_F64 = {"step0_loss": 1e-6, "step0_loc_loss": 1e-6,
+          "step0_conf_loss": 1e-6, "step0_grad_norm": 1e-9,
+          "loss": 1e-6, "loc_loss": 1e-6, "conf_loss": 1e-6,
+          "grad_norm": 1e-9, "val_loss": 1e-6, "params": 2e-9}
 
 
-def dp_train(out: str, deterministic: bool = True) -> dict:
-    """trainer.main at DP_BATCH on the card, device-cached, augmentation
-    on, cuDNN deterministic (unless asked for its default algorithms),
-    with the match/encode launch counter set to 0 just before and read
-    just after; in a process group or without one. Runs on each spawned
-    rank (parallel.Group) and in this process."""
+def _float64_train_state(*args, **kwargs):
+    """train.create_train_state with the model in float64 (Adam's state
+    follows) and a hook that casts the model's float32 input to float64:
+    the float64 witness of the trainer's float32 run."""
+    state = create_train_state(*args, **kwargs)
+    state.model.double()
+    state.model.register_forward_pre_hook(lambda m, a: (a[0].double(),))
+    return state
+
+
+def _augment_as_two_ranks(gen, images, boxes, labels, rank=0, world=1):
+    """train.augment_batch of a whole batch, computed in two halves as two
+    ranks compute theirs (each from the global batch's draws): on the card
+    the float32 resample's batched matmuls round by batch size, and these
+    halves are bit for bit the two ranks' rows."""
+    start = gen.get_state()
+    half = images.shape[0] // 2
+    parts = []
+    for r in range(2):
+        gen.set_state(start)
+        rows = slice(r * half, (r + 1) * half)
+        parts.append(augment_batch(gen, images[rows], boxes[rows],
+                                   labels[rows], r, 2))
+    return tuple(torch.cat(t) for t in zip(*parts))
+
+
+def dp_train(out: str, deterministic: bool = True, float64: bool = False,
+             device_cache: str = "on") -> dict:
+    """trainer.main at DP_BATCH on the card, augmentation on, cuDNN
+    deterministic (unless asked for its default algorithms), in float32
+    or with the model in float64, device-cached or streamed, with the
+    match/encode launch counter set to 0 just before and read just after;
+    in a process group or without one. Runs on each spawned rank
+    (parallel.Group) and in this process, where a float64 run augments
+    as two ranks do (_augment_as_two_ranks)."""
     shard = parallel.current()
     argv = ["--backbone", "mobilenet_v2", "--device", "cuda",
             "--batch-size", str(DP_BATCH), "--dataset", "synthetic",
             "--synthetic-size", "256", "--epochs", str(DP_EPOCHS),
             "--steps-per-epoch", str(TRAIN_STEPS), "--val-limit", "1",
-            "--device-cache", "on", "--seed", str(SEED),
+            "--device-cache", device_cache, "--seed", str(SEED),
             "--model-dir", os.path.join(out, "model"),
             "--log-dir", os.path.join(out, "logs")]
-    before = torch.backends.cudnn.deterministic
+    before = (torch.backends.cudnn.deterministic, trainer.create_train_state,
+              train.augment_batch)
     torch.backends.cudnn.deterministic = deterministic
+    if float64:
+        trainer.create_train_state = _float64_train_state
+        if not shard.distributed:
+            train.augment_batch = _augment_as_two_ranks
     try:
         t0 = time.perf_counter()
         match_encode.LAUNCHES = 0
@@ -1479,7 +1536,8 @@ def dp_train(out: str, deterministic: bool = True) -> dict:
         launches = match_encode.LAUNCHES
         seconds = time.perf_counter() - t0
     finally:
-        torch.backends.cudnn.deterministic = before
+        (torch.backends.cudnn.deterministic, trainer.create_train_state,
+         train.augment_batch) = before
     return dict(rank=shard.rank, world=shard.world,
                 backend=(torch.distributed.get_backend()
                          if shard.distributed else None),
@@ -1488,6 +1546,19 @@ def dp_train(out: str, deterministic: bool = True) -> dict:
                 metrics=run.step_metrics, val=run.val_losses,
                 params={k: v.detach().cpu().numpy() for k, v in
                         run.state.model.state_dict().items()})
+
+
+# The float64 runs of the data-parallel phase: (label, dp_train kwargs).
+DP_F64_RUNS = (("float64 cached", dict(float64=True)),
+               ("float64 streamed", dict(float64=True, device_cache="off")))
+
+
+def dp_gloo_runs(out: str) -> dict:
+    """One gloo rank's runs: float32 device-cached, then DP_F64_RUNS."""
+    runs = {"float32": dp_train(os.path.join(out, "f32"))}
+    for i, (label, kw) in enumerate(DP_F64_RUNS):
+        runs[label] = dp_train(os.path.join(out, f"f64_{i}"), **kw)
+    return runs
 
 
 def _dp_distance(got: dict, want: dict) -> dict:
@@ -1514,6 +1585,11 @@ def _dp_distance(got: dict, want: dict) -> dict:
     return d
 
 
+def _format_distance(d: dict) -> str:
+    return ", ".join(f"{k} {v:.3g}" if isinstance(v, float) else f"{k} {v}"
+                     for k, v in d.items())
+
+
 def _check_dp_rank(r: dict, label: str) -> None:
     want = r["steps"] + r["val_batches"]
     print(f"dp: {label} rank {r['rank']}/{r['world']} ({r['backend']}): "
@@ -1530,26 +1606,38 @@ def _check_dp_rank(r: dict, label: str) -> None:
         raise AssertionError(f"dp: {label}: non-finite metric")
 
 
+def _ranks_equal(ranks: Sequence[dict]) -> bool:
+    return all(np.array_equal(ranks[1]["params"][k], v)
+               for k, v in ranks[0]["params"].items())
+
+
 def dp_phase() -> dict:
     """Data-parallel training on the one card: one process without a
     process group, (b) NCCL at world size 1 (bit-equal to it), (a) two
-    gloo ranks sharing cuda:0 (held to it by DP_STEP0_* and DP_LATER);
-    each rank's match/encode launches equal its steps + validation
-    batches."""
+    gloo ranks sharing cuda:0, in float32 (held to the one process by
+    DP_STEP0_* and DP_LATER) and in float64 on both feeds (held by
+    DP_F64); each rank's match/encode launches equal its steps +
+    validation batches."""
     if DP_DIR.exists():
         shutil.rmtree(DP_DIR)
+    torch.cuda.empty_cache()
+    # both worlds at once, beside this process's runs: each rank's cold
+    # start (CUDA context, cuDNN plans) overlaps the others' work; their
+    # seconds are not timings
+    nccl_group = parallel.Group(dp_train, 1, str(DP_DIR / "nccl1"),
+                                backend="nccl")
+    gloo_group = parallel.Group(dp_gloo_runs, 2, str(DP_DIR / "gloo2"),
+                                backend="gloo")
     single = dp_train(str(DP_DIR / "single"))
     _check_dp_rank(single, "one process")
     control = _dp_distance(dp_train(str(DP_DIR / "default"), False), single)
-    out = {}
-    # both worlds at once: each rank's cold start (CUDA context, cuDNN
-    # plans) overlaps the other's; their seconds are not timings
-    nccl_group = parallel.Group(dp_train, 1, str(DP_DIR / "nccl1"),
-                                      backend="nccl")
-    gloo_group = parallel.Group(dp_train, 2, str(DP_DIR / "gloo2"),
-                                      backend="gloo")
+    single64 = {}
+    for i, (label, kw) in enumerate(DP_F64_RUNS):
+        single64[label] = dp_train(str(DP_DIR / f"single_f64_{i}"), **kw)
+        _check_dp_rank(single64[label], f"one process, {label}")
     (nccl,) = nccl_group.wait()
     gloo = gloo_group.wait()
+    out = {}
     _check_dp_rank(nccl, "NCCL world 1")
     equal = (nccl["metrics"] == single["metrics"]
              and nccl["val"] == single["val"]
@@ -1561,21 +1649,17 @@ def dp_phase() -> dict:
         raise AssertionError("dp: NCCL at world size 1 is not bit-equal to "
                              "the run without a process group")
     out["nccl1"] = nccl["launches"]
-    for r in gloo:
+    f32 = [r["float32"] for r in gloo]
+    for r in f32:
         _check_dp_rank(r, "gloo, two ranks on cuda:0")
-    same = all(np.array_equal(gloo[1]["params"][k], v)
-               for k, v in gloo[0]["params"].items())
-    d = _dp_distance(gloo[0], single)
-    print(f"dp: two gloo ranks against one process at batch {DP_BATCH}: "
-          + ", ".join(f"{k} {v:.3g}" if isinstance(v, float) else
-                      f"{k} {v}" for k, v in d.items())
-          + f"; gates step 0 loss terms {DP_STEP0_LOSS}, grad_norm "
-          f"{DP_STEP0_GRAD_NORM}, later {DP_LATER}; the ranks' weights "
-          f"bit-equal {same}; control, one process with cuDNN's default "
-          f"algorithms against it: "
-          + ", ".join(f"{k} {v:.3g}" if isinstance(v, float) else
-                      f"{k} {v}" for k, v in control.items())
-          + f" ({CARD_LINE})")
+    same = _ranks_equal(f32)
+    d = _dp_distance(f32[0], single)
+    print(f"dp: two gloo ranks against one process at batch {DP_BATCH}, "
+          f"float32: {_format_distance(d)}; gates step 0 loss terms "
+          f"{DP_STEP0_LOSS}, grad_norm {DP_STEP0_GRAD_NORM}, later "
+          f"{DP_LATER}; the ranks' weights bit-equal {same}; control, one "
+          f"process with cuDNN's default algorithms against it: "
+          f"{_format_distance(control)} ({CARD_LINE})")
     refused = [k for k in ("loss", "loc_loss", "conf_loss")
                if d[f"step0_{k}"] > DP_STEP0_LOSS]
     refused += ["step0_grad_norm"] * (d["step0_grad_norm"]
@@ -1585,8 +1669,23 @@ def dp_phase() -> dict:
         raise AssertionError(f"dp: two ranks against one process: {refused}"
                              f", weights equal {same}, num_pos equal "
                              f"{d['num_pos_equal']}")
-    out["gloo2"] = [r["launches"] for r in gloo]
+    out["gloo2"] = [r["launches"] for r in f32]
     out["distance"] = d
+    for label, _ in DP_F64_RUNS:
+        ranks = [r[label] for r in gloo]
+        for r in ranks:
+            _check_dp_rank(r, f"gloo, two ranks on cuda:0, {label}")
+        same = _ranks_equal(ranks)
+        d = _dp_distance(ranks[0], single64[label])
+        print(f"dp: two gloo ranks against one process at batch "
+              f"{DP_BATCH}, {label}: {_format_distance(d)}; gates {DP_F64}"
+              f"; the ranks' weights bit-equal {same} ({CARD_LINE})")
+        refused = [k for k, gate in DP_F64.items() if d[k] > gate]
+        if refused or not same or not d["num_pos_equal"]:
+            raise AssertionError(
+                f"dp: two ranks against one process, {label}: {refused}, "
+                f"weights equal {same}, num_pos equal {d['num_pos_equal']}")
+        out[f"distance {label}"] = d
     return out
 
 

@@ -95,12 +95,15 @@ def _encode_f64(anchors, boxes, labels, cfg):
 
 def _sides_from_f64(ref, **sides):
     """Each side's largest distance from the float64 encode, and its count
-    of deltas more than ATOL from it."""
+    of deltas more than ATOL from it, in all and by component (dcy, dcx,
+    dh, dw: the divides against the logs)."""
     parts = []
     for name, deltas in sides.items():
         err = np.abs(np.asarray(deltas, np.float64) - ref)
+        by = "/".join(str(int(n)) for n in (err > ATOL).reshape(
+            -1, 4).sum(axis=0))
         parts.append(f"{name} {err.max():.3g} ({int((err > ATOL).sum())} "
-                     f"deltas > {ATOL})")
+                     f"deltas > {ATOL}; dcy/dcx/dh/dw {by})")
     return "distance from a float64 encode of the same matches: " + ", ".join(
         parts)
 

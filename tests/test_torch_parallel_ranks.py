@@ -51,6 +51,8 @@ def train_form(form: str, shard: parallel.Shard):
     anchors = torch.from_numpy(generate_anchors(cfg))
     state = create_train_state(cfg, 0, "cpu", make_lr_schedule(1))
     state.model.double()
+    # the step's float32-augmented images enter the model in float64
+    state.model.register_forward_pre_hook(lambda m, args: (args[0].double(),))
     parallel.broadcast_state(state.model, state.optimizer, shard)
     ds = SyntheticDataset(STEPS * GLOBAL_BATCH, image_size=64,
                           num_classes=5, seed=3)

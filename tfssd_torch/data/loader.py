@@ -123,12 +123,13 @@ def batch_examples(dataset: Iterable[Dict], batch_size: int, max_gt: int,
     The order is the dataset's, or with `shuffle_seed` the permutation
     np.random.default_rng(shuffle_seed).permutation(len(dataset)) (each
     pass of `repeat` draws the generator's next one). `workers` > 1
-    decodes in that many threads. A seed or workers need a random-access
-    dataset (`__len__` and `example(i)`); a plain iterable raises
-    ValueError rather than batch in file order unnoticed.
+    decodes in that many threads. A seed, workers or a shard need a
+    random-access dataset (`__len__` and `example(i)`); a plain iterable
+    is batched in its own order, and raises ValueError with any of them
+    rather than batch in file order unnoticed.
 
-    `shard` = (rank, world) with world > 1 yields, of each global batch
-    of `batch_size`, only rank's rows (batch_size // world of them, the
+    `shard` = (rank, world) yields, of each global batch of
+    `batch_size`, only rank's rows (batch_size // world of them, the
     rows rank * b .. (rank + 1) * b - 1, parallel.Shard.rows) and decodes
     no other: every rank yields as many batches, a short last batch
     padded (and num_valid counting the rank's real rows, possibly 0)."""
@@ -136,55 +137,37 @@ def batch_examples(dataset: Iterable[Dict], batch_size: int, max_gt: int,
     if batch_size % world:
         raise ValueError(f"batch_size {batch_size} does not divide into "
                          f"{world} ranks")
+    passes = itertools.count() if repeat else range(1)
+    if not hasattr(dataset, "example"):
+        if shuffle_seed is not None or workers > 1 or world > 1:
+            raise ValueError(
+                "shuffle_seed/workers/shard require a random-access dataset "
+                "(with .example); got a plain iterable")
+        for _ in passes:
+            buf = []
+            for ex in dataset:
+                buf.append(ex)
+                if len(buf) == batch_size:
+                    yield _collate(buf, max_gt)
+                    buf = []
+            if buf and not drop_remainder:
+                yield _collate(buf, max_gt, pad_to=batch_size)
+        return
     rng = (np.random.default_rng(shuffle_seed)
            if shuffle_seed is not None else None)
-    random_access = hasattr(dataset, "example")
-    if not random_access and (shuffle_seed is not None or workers > 1
-                              or world > 1):
-        raise ValueError(
-            "shuffle_seed/workers/shard require a random-access dataset "
-            "(with .example); got a plain iterable")
-
-    def decode(order):
-        if workers > 1:
-            return _parallel_examples(dataset, order, workers)
-        return (dataset.example(int(i)) for i in order)
-
-    def one_pass():
-        if not random_access:
-            return iter(dataset)
-        return decode(rng.permutation(len(dataset)) if rng is not None
-                      else np.arange(len(dataset)))
-
-    if world > 1:
-        yield from _rank_batches(dataset, batch_size, max_gt, rng, repeat,
-                                 drop_remainder, rank, world, decode)
-        return
-    for _ in (itertools.count() if repeat else range(1)):
-        buf = []
-        for ex in one_pass():
-            buf.append(ex)
-            if len(buf) == batch_size:
-                yield _collate(buf, max_gt)
-                buf = []
-        if buf and not drop_remainder:
-            yield _collate(buf, max_gt, pad_to=batch_size)
-
-
-def _rank_batches(dataset, batch_size: int, max_gt: int, rng, repeat: bool,
-                  drop_remainder: bool, rank: int, world: int, decode
-                  ) -> Iterator[Dict[str, np.ndarray]]:
-    """batch_examples' batches of one rank (see there)."""
     local = batch_size // world
-    for _ in (itertools.count() if repeat else range(1)):
+    for _ in passes:
         n = len(dataset)
         order = rng.permutation(n) if rng is not None else np.arange(n)
-        n_batches = n // batch_size if drop_remainder else -(-n //
-                                                             batch_size)
+        n_batches = (n // batch_size if drop_remainder
+                     else -(-n // batch_size))
         mine = [order[g * batch_size + rank * local:
                       g * batch_size + (rank + 1) * local]
                 for g in range(n_batches)]
-        examples = decode(np.concatenate(mine) if mine else order[:0])
+        wanted = np.concatenate(mine) if mine else order[:0]
+        examples = (_parallel_examples(dataset, wanted, workers)
+                    if workers > 1 else
+                    (dataset.example(int(i)) for i in wanted))
         for rows in mine:
             buf = list(itertools.islice(examples, len(rows)))
             if buf:

@@ -29,13 +29,12 @@ dtype (float32, or float64 for a float64 model) with no casts.
 from __future__ import annotations
 
 import contextlib
+import warnings
 from typing import Callable, Iterator, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
-
-from tfssd_torch import parallel
 
 BN_EPSILON = 1e-3
 BN_MOMENTUM = 0.99  # Flax convention; SSDConfig.bn_momentum's default
@@ -137,17 +136,19 @@ class FlaxBatchNorm2d(nn.BatchNorm2d):
     forward) train mode normalises as before but leaves the running
     statistics and the count alone: Flax updates them once a step.
 
-    Under data parallelism (a process group of more than one rank,
-    tfssd_torch/parallel.py) train mode takes the global batch's
-    statistics, as the JAX step's BatchNorm does over a sharded batch
-    under jit: _global_batch."""
+    With `world` > 1 (batch_stats_global: the train step of a rank of a
+    data-parallel process group, tfssd_torch/parallel.py) train mode takes
+    the statistics of the global batch that `world` ranks split, as the
+    JAX step's BatchNorm does over a sharded batch under jit:
+    _global_batch."""
 
     frozen = False
+    world = 1
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training:
             return super().forward(x)
-        if parallel.current().world > 1:
+        if self.world > 1:
             return self._global_batch(x)
         n = x.numel() // x.shape[1]
         if n == 1:
@@ -180,10 +181,10 @@ class FlaxBatchNorm2d(nn.BatchNorm2d):
         formula, y = (x - mean) * rsqrt(var + eps) * scale + bias, and the
         running statistics updated with that mean and biased variance."""
         c = x.shape[1]
-        n = x.numel() // c * torch.distributed.get_world_size()
-        mean = parallel.all_reduce_autograd(x.sum(dim=(0, 2, 3))) / n
+        n = x.numel() // c * self.world
+        mean = _all_reduce_autograd(x.sum(dim=(0, 2, 3))) / n
         centred = x - mean.view(1, -1, 1, 1)
-        var = parallel.all_reduce_autograd(
+        var = _all_reduce_autograd(
             (centred * centred).sum(dim=(0, 2, 3))) / n
         mul = torch.rsqrt(var + self.eps) * self.weight
         y = centred * mul.view(1, -1, 1, 1) + self.bias.view(1, -1, 1, 1)
@@ -214,18 +215,46 @@ class FlaxBatchNorm2d(nn.BatchNorm2d):
         return y
 
 
+def _all_reduce_autograd(t: torch.Tensor) -> torch.Tensor:
+    """The sum of `t` over the ranks of the process group, as a new tensor
+    whose backward sums the ranks' gradients
+    (torch.distributed.nn.functional.all_reduce; its deprecation warning,
+    which names a private replacement without autograd, is silenced)."""
+    from torch.distributed.nn.functional import all_reduce
+
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", FutureWarning)
+        return all_reduce(t)
+
+
 @contextlib.contextmanager
-def batch_stats_frozen(module: nn.Module) -> Iterator[None]:
-    """Within the block every FlaxBatchNorm2d of `module` is frozen (its
-    running statistics and count are left alone in train mode)."""
+def _batch_norms_set(module: nn.Module, name: str, value) -> Iterator[None]:
+    """Within the block attribute `name` of every FlaxBatchNorm2d of
+    `module` is `value`; restored after."""
     bns = [m for m in module.modules() if isinstance(m, FlaxBatchNorm2d)]
+    before = [getattr(m, name) for m in bns]
     for m in bns:
-        m.frozen = True
+        setattr(m, name, value)
     try:
         yield
     finally:
-        for m in bns:
-            m.frozen = False
+        for m, v in zip(bns, before):
+            setattr(m, name, v)
+
+
+def batch_stats_frozen(module: nn.Module):
+    """Within the block every FlaxBatchNorm2d of `module` is frozen (its
+    running statistics and count are left alone in train mode)."""
+    return _batch_norms_set(module, "frozen", True)
+
+
+def batch_stats_global(module: nn.Module, world: int):
+    """Within the block every FlaxBatchNorm2d of `module` takes, in train
+    mode, the statistics of the global batch that the `world` ranks of
+    the process group split in equal shards (world 1: the local batch's,
+    nothing communicated). The block must hold the backward too, where a
+    rematerialised forward is recomputed."""
+    return _batch_norms_set(module, "world", world)
 
 
 class ConvBN(nn.Module):

@@ -23,7 +23,8 @@ the outputs, and calls the library with the raw handle of the current
 stream of the tensors' device; the C side switches the current device only
 if it differs. It reads nothing back from the device.
 
-The custom operator `tfssd::match_encode` (torch.library) dispatches by
+The custom operator `tfssd::match_encode` (defined and implemented
+through torch.library.Library, as nms_keep.py says why) dispatches by
 device: its CPU implementation is the plain version (ops/matching.py), its
 CUDA implementation the kernel, which raises if it cannot run, and a fake
 implementation gives the outputs' shapes for tracing. There is no fallback
@@ -36,7 +37,7 @@ plain version folds it into its own matching.
 from __future__ import annotations
 
 import ctypes
-from typing import Sequence, Tuple
+from typing import Tuple
 
 import torch
 
@@ -131,22 +132,14 @@ def match_encode_cuda(anchors: torch.Tensor, gt_boxes: torch.Tensor,
     return deltas, labels
 
 
-@torch.library.custom_op("tfssd::match_encode", mutates_args=(),
-                         device_types="cpu")
-def match_encode_op(anchors: torch.Tensor, gt_boxes: torch.Tensor,
-                    gt_labels: torch.Tensor, iou_threshold: float,
-                    variances: Sequence[float], force_match_for_gt: bool
-                    ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Targets (deltas (B, N, 4), labels (B, N) int32) through the
-    dispatcher: the plain matcher for CPU tensors (this body), the CUDA
-    kernel (+ the force-match post-pass) for CUDA tensors."""
+def _match_encode_cpu(anchors, gt_boxes, gt_labels, iou_threshold,
+                      variances, force_match_for_gt):
     _check(anchors, gt_boxes, gt_labels)
     return matching.match_targets(anchors, gt_boxes, gt_labels,
                                   iou_threshold, tuple(variances),
                                   force_match_for_gt)
 
 
-@match_encode_op.register_kernel("cuda")
 def _match_encode_op_cuda(anchors, gt_boxes, gt_labels, iou_threshold,
                           variances, force_match_for_gt):
     deltas, labels = match_encode_cuda(anchors, gt_boxes, gt_labels,
@@ -157,12 +150,27 @@ def _match_encode_op_cuda(anchors, gt_boxes, gt_labels, iou_threshold,
     return deltas, labels
 
 
-@match_encode_op.register_fake
+_LIB = torch.library.Library("tfssd", "FRAGMENT")
+_LIB.define("match_encode(Tensor anchors, Tensor gt_boxes, "
+            "Tensor gt_labels, float iou_threshold, float[] variances, "
+            "bool force_match_for_gt) -> (Tensor, Tensor)")
+_LIB.impl("match_encode", _match_encode_cpu, "CPU")
+_LIB.impl("match_encode", _match_encode_op_cuda, "CUDA")
+
+
+@torch.library.register_fake("tfssd::match_encode")
 def _match_encode_op_fake(anchors, gt_boxes, gt_labels, iou_threshold,
                           variances, force_match_for_gt):
     _check(anchors, gt_boxes, gt_labels)
     b, n = gt_labels.shape[0], anchors.shape[0]
     return anchors.new_empty((b, n, 4)), gt_labels.new_empty((b, n))
+
+
+# (anchors, gt_boxes, gt_labels, iou_threshold, variances,
+# force_match_for_gt) -> (deltas (B, N, 4), labels (B, N) int32), by
+# device: the plain matcher for CPU tensors, the CUDA kernel (+ the
+# force-match post-pass) for CUDA tensors.
+match_encode_op = torch.ops.tfssd.match_encode.default
 
 
 def match_encode(anchors: torch.Tensor, gt_boxes: torch.Tensor,

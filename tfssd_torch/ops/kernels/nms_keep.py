@@ -25,17 +25,19 @@ current stream of the tensors' device; the C side switches the current
 device only if it differs. It reads nothing back from the device: no
 sync, no .item(), and a tensor threshold is refused rather than read.
 
-`nms_keep` is the custom operator `tfssd::nms_keep` (torch.library):
-its CPU implementation is the plain version, its CUDA implementation the
-kernel, which raises if it cannot run, and a fake implementation gives
-the output's shape for tracing. The dispatcher picks by device, so there
-is no fallback from one to the other and no Python device switch on the
-path; `torch.export` records one `tfssd::nms_keep` node (the plain
-version's K-step loop is never unrolled into a graph), and an exported
-program launches the kernel wherever it runs on the card. The thresholds
-are `float` arguments of the op's schema. The op's dispatch adds host time
-to every call, about as much again as the ctypes wrapper's own (PERF.md
-§6); a CUDA graph of the caller removes both.
+`nms_keep` is the custom operator `tfssd::nms_keep`, defined and
+implemented through torch.library.Library: its CPU implementation is the
+plain version, its CUDA implementation the kernel, which raises if it
+cannot run, and a fake implementation gives the output's shape for
+tracing. The dispatcher picks by device, so there is no fallback from one
+to the other and no Python device switch on the path; `torch.export`
+records one `tfssd::nms_keep` node (the plain version's K-step loop is
+never unrolled into a graph), and an exported program launches the kernel
+wherever it runs on the card. The thresholds are `float` arguments of the
+op's schema. The dispatcher calls the implementations directly:
+torch.library.custom_op would wrap each call in its own Python layer,
+which took more host time a call than the ctypes launch itself (PERF.md
+§6).
 """
 
 from __future__ import annotations
@@ -143,19 +145,19 @@ def nms_keep_reference(boxes: torch.Tensor, scores: torch.Tensor,
     return keep
 
 
-@torch.library.custom_op("tfssd::nms_keep", mutates_args=(),
-                         device_types="cpu")
-def nms_keep(boxes: torch.Tensor, scores: torch.Tensor,
-             iou_threshold: float, score_threshold: float) -> torch.Tensor:
-    """Keep mask by device, through the dispatcher: the plain version for
-    CPU tensors (this body), the CUDA kernel for CUDA tensors."""
-    return nms_keep_reference(boxes, scores, iou_threshold, score_threshold)
+_LIB = torch.library.Library("tfssd", "FRAGMENT")
+_LIB.define("nms_keep(Tensor boxes, Tensor scores, float iou_threshold, "
+            "float score_threshold) -> Tensor")
+_LIB.impl("nms_keep", nms_keep_reference, "CPU")
+_LIB.impl("nms_keep", nms_keep_cuda, "CUDA")
 
 
-nms_keep.register_kernel("cuda")(nms_keep_cuda)
-
-
-@nms_keep.register_fake
+@torch.library.register_fake("tfssd::nms_keep")
 def _nms_keep_fake(boxes, scores, iou_threshold, score_threshold):
     _check(boxes, scores)
     return torch.empty_like(scores, dtype=torch.bool)
+
+
+# (boxes, scores, iou_threshold, score_threshold) -> keep, by device: the
+# plain version for CPU tensors, the CUDA kernel for CUDA tensors.
+nms_keep = torch.ops.tfssd.nms_keep.default

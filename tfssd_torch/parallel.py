@@ -18,8 +18,9 @@ batch's semantics. Here each rank is a process with its own device:
     (`all_reduce_grads`): with equal shards the mean of the ranks' local
     mean losses is the global batch's mean loss, as the JAX step's
     jnp.mean over all images; BatchNorm takes the global batch's
-    statistics (models/layers.py:FlaxBatchNorm2d); the augmentation draws
-    are the global batch's (data/augment.py:augment_batch);
+    statistics (the train step's models/layers.py:batch_stats_global);
+    the augmentation draws are the global batch's
+    (data/augment.py:augment_batch);
   * `reduce_metrics` returns the global metrics (loss terms averaged,
     num_pos summed) and `gather_results` the global batch's NMSResult.
 
@@ -36,7 +37,6 @@ import os
 import queue as queue_module
 import socket
 import time
-import warnings
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import torch
@@ -99,18 +99,6 @@ def teardown(owned: bool) -> None:
     """Destroy the process group if `setup` initialised it."""
     if owned and dist.is_initialized():
         dist.destroy_process_group()
-
-
-def all_reduce_autograd(t: torch.Tensor) -> torch.Tensor:
-    """The sum of `t` over the ranks, as a new tensor whose backward sums
-    the ranks' gradients (torch.distributed.nn.functional.all_reduce; its
-    deprecation warning, which names a private replacement without
-    autograd, is silenced)."""
-    from torch.distributed.nn.functional import all_reduce
-
-    with warnings.catch_warnings():
-        warnings.simplefilter("ignore", FutureWarning)
-        return all_reduce(t)
 
 
 def barrier(shard: Shard) -> None:

@@ -20,7 +20,8 @@ and gradient norm before the update and raises FloatingPointError at a
 non-finite one). Under data parallelism (`shard`, tfssd_torch/
 parallel.py) a rank's step keeps the global batch's semantics: it draws
 the augmentation of the global batch and applies its rows' draws,
-BatchNorm takes the global statistics, the gradients are averaged over the
+BatchNorm takes the global statistics (batch_stats_global around
+the forward and the backward), the gradients are averaged over the
 ranks before grad_norm is read and Adam steps, and the metrics come back
 global (loss terms averaged, num_pos summed); the cached forms take the
 global batch's row indices and gather the rank's rows. A Shard of one
@@ -38,6 +39,7 @@ metrics stacked (K,). Each step runs inside a profiler range
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
 from typing import Callable, Dict, List, Tuple
@@ -49,6 +51,7 @@ from tfssd_torch import parallel
 from tfssd_torch.config import SSDConfig
 from tfssd_torch.data.augment import augment_batch
 from tfssd_torch.models.decoder import preprocess_images
+from tfssd_torch.models.layers import batch_stats_global
 from tfssd_torch.models.ssd import SSD, get_model, init_random_weights
 from tfssd_torch.ops.kernels.match_encode import match_batch
 from tfssd_torch.ops.losses import ssd_losses
@@ -160,20 +163,20 @@ def make_train_step(anchors: torch.Tensor, config: SSDConfig,
             gen.manual_seed(augment_seed(seed, state.step))
             images, gt_boxes, gt_labels = augment_batch(
                 gen, images, gt_boxes, gt_labels, shard.rank, shard.world)
-        # a float64 model (the witness of a float32 step) takes the
-        # float32-augmented images in float64; otherwise a no-op
-        images = (images * 2.0 - 1.0).to(torch.promote_types(
-            images.dtype, next(model.parameters()).dtype))
+        images = images * 2.0 - 1.0
         actual_deltas, actual_labels = match_batch(
             anchors, gt_boxes.contiguous(), gt_labels.contiguous(), config)
         model.train()
-        pred_deltas, pred_logits = model(images)
-        total, metrics = ssd_losses(actual_deltas, actual_labels,
-                                    pred_deltas, pred_logits,
-                                    config.neg_pos_ratio,
-                                    config.loc_loss_alpha)
-        opt.zero_grad(set_to_none=True)
-        total.backward()
+        # one rank's step skips the walk over the modules (host time)
+        with (batch_stats_global(model, shard.world) if shard.world > 1
+              else contextlib.nullcontext()):
+            pred_deltas, pred_logits = model(images)
+            total, metrics = ssd_losses(actual_deltas, actual_labels,
+                                        pred_deltas, pred_logits,
+                                        config.neg_pos_ratio,
+                                        config.loc_loss_alpha)
+            opt.zero_grad(set_to_none=True)
+            total.backward()
         parallel.all_reduce_grads(model, shard)
         metrics = parallel.reduce_metrics(metrics, shard)
         grads = [p.grad for p in model.parameters() if p.grad is not None]

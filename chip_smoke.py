@@ -170,7 +170,15 @@ Phases, in order; any failure ends the run with a non-zero exit:
               mAP within TRAINED_MAP_GATE of TRAINED_MAP_JAX. The same
               process loads P on the CPU and serves the first batch,
               held against the port's CPU path (the unfolded model) by the
-              same gate. Then live against artifact img/s (the JAX
+              same gate. The same for SSD300-VGG16 and SSD512 with seeded
+              weights (trained/ssd_vgg16 is not copied to the card):
+              `predict.main(["--backbone", <b>, "--random-weights",
+              "--export", P, "--export-batch", <2 / 1>])`, served in the
+              same fresh process (8 / 4 images: launches == calls) and held
+              against the eager `--no-fold-bn` run of those images through
+              predict.main, and its first batch on the CPU against the
+              port's CPU path; these artifacts (~100 MiB each) are deleted
+              after the phase. Then live against artifact img/s (the JAX
               package's tools/export_bench.py cell: MobileNetV2 bfloat16,
               seeded, unfolded, batch 256), in turns in this run.
   4d. dp    — data-parallel training on the one card: trainer.main at
@@ -191,6 +199,29 @@ Phases, in order; any failure ends the run with a non-zero exit:
               the one process's (distances printed). Each rank's
               match/encode launches, counted from 0, must equal its steps
               + validation batches in every run.
+  4e. resume — the JAX trainer's committed checkpoint continued by the
+              port: trained/ssd_mobilenet_v2/7680 read whole without orbax
+              (OrbaxCheckpoints.restore_train_state: 735 arrays, 410 of
+              them optax Adam's state; the seconds and MiB printed),
+              restored into the port's TrainState on the card and on the
+              CPU, the eval loss terms of a fixed synthetic batch within
+              RESUME_EVAL_GATE of each other; the first train step from
+              the trained weights (batch 8, no augmentation) in float32 and
+              in bfloat16 on the card against the float64 CPU step (loss,
+              grad_norm and gradient distances printed); then
+              `trainer.main(["--resume", "--model-dir", <the step linked
+              in, the JAX run's sidecar copied>, ...])` at the sidecar's
+              geometry (batch 8, 2 steps an epoch) for one epoch from step
+              7680, a second --resume from the port's own checkpoint for
+              one more, and an uninterrupted run of both epochs from the
+              JAX checkpoint, all with cuDNN's deterministic algorithms:
+              match_encode's launches, counted from 0, equal each run's
+              steps + validation batches; the first run says it restored
+              the JAX package's checkpoint and writes ckpt_7682 under
+              ssd_mobilenet_v2_torch only; the two resumed runs equal the
+              uninterrupted one bit for bit (every step's metrics, the
+              validation losses, the weights); the JAX step and sidecar
+              are byte for byte as before.
   5. timing — serving img/s at batch 8 and 64 (device-resident uint8
               images -> NMSResult), for each VGG16 config at batch 8 and
               the largest of 64 / 32 that fits; train ms/step, img/s and
@@ -223,10 +254,12 @@ Phases, in order; any failure ends the run with a non-zero exit:
      match_encode's on the VOC runs as
      launches_voc_<config>_{streamed,cached,spc2[,cached_spc2]} and on
      the data-parallel runs as launches_dp_nccl1 and
-     launches_dp_gloo2_rank<r>; nms_keep's in the export phase's fresh
-     process as launches_export_fresh_process, with the artifact's size
-     and the live and artifact img/s), then the one-line JSON result,
-     last.
+     launches_dp_gloo2_rank<r>, and on the resume phase's runs as
+     launches_resume_{jax_checkpoint,own_checkpoint,uninterrupted};
+     nms_keep's in the export phase's fresh process as
+     launches_export_fresh_process[_<vgg config>], with the artifacts'
+     sizes and the live and artifact img/s), then the one-line JSON
+     result, last.
 
 It exits non-zero without a result when no CUDA device is available, and
 in a directory that holds this script without the tfssd_torch package
@@ -1244,8 +1277,16 @@ EXPORT_ATOL = 1e-6
 EXPORT_TIMING_ITERS = 20
 EXPORT_CHILD_TIMEOUT_S = 600
 
+# The VGG16 configurations exported with seeded weights (the committed
+# SSD300-VGG16 checkpoint is not copied to the card): (export batch,
+# images served) each; a batch the CPU copy serves in seconds.
+EXPORT_VGG = {"vgg16": (2, 8), "vgg16_512": (1, 4)}
+
 # What the fresh process runs: no module of tfssd_torch.models; the
 # images are preprocessed with models/decoder.py:preprocess_images's ops.
+# Its argument is a JSON list of jobs (artifact, images, output, batch, CPU
+# batches); each artifact serves its images on the card, nms_keep's
+# launches counted from 0, then its first batches on the CPU.
 EXPORT_CHILD = r"""
 import json, sys, time
 import numpy as np
@@ -1253,37 +1294,38 @@ import torch
 import tfssd_torch.ops.kernels as kernels
 from tfssd_torch.utils.export import load_exported
 
-path, images_path, out_path = sys.argv[1:4]
-batch, cpu_batches = int(sys.argv[4]), int(sys.argv[5])
-blob = open(path, "rb").read()
-images = np.load(images_path)
-
 def pre(x):
     return x.float() / 255.0 * 2.0 - 1.0
 
-t0 = time.perf_counter()
-serve = load_exported(blob, "cuda")
-load_s = time.perf_counter() - t0
-kernels.nms_keep.LAUNCHES = 0
-card = []
-for b in range(0, len(images), batch):
-    res = serve(pre(torch.from_numpy(images[b:b + batch]).cuda()))
-    card.append([t.cpu().numpy() for t in res])
-torch.cuda.synchronize()
-launches = kernels.nms_keep.LAUNCHES
-cpu_serve = load_exported(blob, "cpu")
-cpu = [[t.numpy() for t in cpu_serve(pre(torch.from_numpy(
-    images[b:b + batch])))] for b in range(0, cpu_batches * batch, batch)]
-fields = type(res)._fields
-np.savez(out_path, **{f"card_{f}": np.concatenate([r[i] for r in card])
-                      for i, f in enumerate(fields)},
-         **{f"cpu_{f}": np.concatenate([r[i] for r in cpu])
-            for i, f in enumerate(fields)})
-print(json.dumps({"launches": launches, "calls": len(card),
-                  "load_s": load_s, "result_type": type(res).__name__,
-                  "model_modules": sorted(
-                      m for m in sys.modules
-                      if m.startswith("tfssd_torch.models"))}))
+reports = []
+for job in json.loads(sys.argv[1]):
+    blob = open(job["path"], "rb").read()
+    images = np.load(job["images"])
+    batch = job["batch"]
+    t0 = time.perf_counter()
+    serve = load_exported(blob, "cuda")
+    load_s = time.perf_counter() - t0
+    kernels.nms_keep.LAUNCHES = 0
+    card = []
+    for b in range(0, len(images), batch):
+        res = serve(pre(torch.from_numpy(images[b:b + batch]).cuda()))
+        card.append([t.cpu().numpy() for t in res])
+    torch.cuda.synchronize()
+    launches = kernels.nms_keep.LAUNCHES
+    del serve
+    cpu_serve = load_exported(blob, "cpu")
+    cpu = [[t.numpy() for t in cpu_serve(pre(torch.from_numpy(
+        images[b:b + batch])))]
+        for b in range(0, job["cpu_batches"] * batch, batch)]
+    fields = type(res)._fields
+    np.savez(job["out"], **{f"card_{f}": np.concatenate([r[i] for r in card])
+                            for i, f in enumerate(fields)},
+             **{f"cpu_{f}": np.concatenate([r[i] for r in cpu])
+                for i, f in enumerate(fields)})
+    reports.append({"launches": launches, "calls": len(card),
+                    "load_s": load_s, "result_type": type(res).__name__})
+print(json.dumps({"jobs": reports, "model_modules": sorted(
+    m for m in sys.modules if m.startswith("tfssd_torch.models"))}))
 """
 
 
@@ -1323,80 +1365,130 @@ def _check_nms_distance(d: dict, label: str) -> None:
                              f"{EXPORT_ATOL})")
 
 
-def export_phase(unfolded: dict) -> dict:
-    """predict --export of the committed checkpoint at its defaults, served
-    by a fresh process on the card (nms_keep launched once per call) and
-    on the CPU; held against the eager --no-fold-bn run of phase 4, the
-    port's CPU path and TRAINED_MAP_JAX; then live against artifact img/s,
-    MobileNetV2 bfloat16 at batch 256."""
-    EXPORT_DIR.mkdir(parents=True, exist_ok=True)
-    path = EXPORT_DIR / "ssd_mobilenet_v2_b8.pt2"
-    argv = ["--export", str(path), "--export-batch", str(EXPORT_BATCH)]
+def _export(argv: list, path: Path) -> tuple:
+    """predict.main(["--export", path, ...argv]): (seconds, MiB)."""
     t0 = time.perf_counter()
-    if predict.main(argv) is not None:
+    if predict.main(["--export", str(path)] + argv) is not None:
         raise AssertionError("predict --export served instead of exporting")
-    export_s = time.perf_counter() - t0
-    size = path.stat().st_size
-    images = unfolded["images"]
-    images_path = EXPORT_DIR / "images.npy"
-    out_path = EXPORT_DIR / "results.npz"
-    np.save(images_path, images)
+    return time.perf_counter() - t0, path.stat().st_size / 2**20
+
+
+def _serve_fresh(jobs: list) -> dict:
+    """EXPORT_CHILD in a fresh process on `jobs`: its report, each job's
+    (card, cpu) NMSResults added; the launches must equal the calls, no
+    model module imported."""
     t0 = time.perf_counter()
     proc = subprocess.run(
-        [sys.executable, "-c", EXPORT_CHILD, str(path), str(images_path),
-         str(out_path), str(EXPORT_BATCH), str(EXPORT_CPU_BATCHES)],
+        [sys.executable, "-c", EXPORT_CHILD, json.dumps(jobs)],
         cwd=ROOT, capture_output=True, text=True,
         timeout=EXPORT_CHILD_TIMEOUT_S)
-    child_s = time.perf_counter() - t0
     if proc.returncode != 0:
         raise AssertionError(f"export: the fresh process failed:\n"
                              f"{proc.stderr[-4000:]}")
     report = json.loads(proc.stdout.strip().splitlines()[-1])
-    print(f"export: predict.main({argv}) wrote {size / 2**20:.2f} MiB in "
-          f"{export_s:.1f} s; fresh process ({child_s:.1f} s, load "
-          f"{report['load_s']:.2f} s): {report['calls']} calls of "
-          f"{EXPORT_BATCH} on the card, nms_keep launches="
-          f"{report['launches']}, result {report['result_type']}, "
-          f"tfssd_torch.models modules imported {report['model_modules']}")
-    if (report["launches"] != report["calls"]
-            or report["calls"] * EXPORT_BATCH != len(images)
-            or report["model_modules"]
-            or report["result_type"] != "NMSResult"):
-        raise AssertionError(f"export: the fresh process's report {report}")
-    with np.load(out_path) as out:
-        card = nms.NMSResult(*(out[f"card_{f}"] for f in nms.NMSResult._fields))
-        cpu = nms.NMSResult(*(out[f"cpu_{f}"] for f in nms.NMSResult._fields))
-    eager = _concat(unfolded["results"])
-    d_card = _nms_distance(card, eager)
+    report["seconds"] = time.perf_counter() - t0
+    if report["model_modules"]:
+        raise AssertionError(f"export: the fresh process imported "
+                             f"{report['model_modules']}")
+    for job, r in zip(jobs, report["jobs"]):
+        n = len(np.load(job["images"], mmap_mode="r"))
+        if (r["launches"] != r["calls"] or r["calls"] * job["batch"] != n
+                or r["result_type"] != "NMSResult"):
+            raise AssertionError(f"export: the fresh process's report {r} "
+                                 f"({job['path']})")
+        with np.load(job["out"]) as out:
+            r["card"], r["cpu"] = (nms.NMSResult(*(
+                out[f"{side}_{f}"] for f in nms.NMSResult._fields))
+                for side in ("card", "cpu"))
+    return report
+
+
+def _cpu_eager(backbone: str, weights, images: np.ndarray) -> nms.NMSResult:
+    """The port's CPU path (the unfolded model) on uint8 `images`."""
+    cfg, cpu_model = predict.load_model(backbone, weights, SEED,
+                                        device="cpu", fold_bn=False)
+    anchors = torch.from_numpy(generate_anchors(cfg))
+    with torch.no_grad():
+        deltas, logits = cpu_model(preprocess_images(torch.from_numpy(
+            images)))
+        return nms.NMSResult(*(t.numpy() for t in decode_predictions(
+            anchors, deltas, logits, cfg)))
+
+
+def export_phase(unfolded: dict) -> dict:
+    """predict --export of the committed checkpoint at its defaults, and of
+    SSD300-VGG16 and SSD512 with seeded weights, served by one fresh
+    process on the card (nms_keep launched once per call) and on the CPU;
+    held against the eager --no-fold-bn runs (phase 4's for the
+    checkpoint), the port's CPU path and TRAINED_MAP_JAX; then live
+    against artifact img/s, MobileNetV2 bfloat16 at batch 256."""
+    EXPORT_DIR.mkdir(parents=True, exist_ok=True)
+    exports = {}
+    np.save(EXPORT_DIR / "mobilenet_v2.npy", unfolded["images"])
+    exports["mobilenet_v2"] = dict(
+        argv=["--export-batch", str(EXPORT_BATCH)],
+        eager=_concat(unfolded["results"]),
+        job=dict(path=str(EXPORT_DIR / "ssd_mobilenet_v2_b8.pt2"),
+                 images=str(EXPORT_DIR / "mobilenet_v2.npy"),
+                 out=str(EXPORT_DIR / "mobilenet_v2.npz"),
+                 batch=EXPORT_BATCH, cpu_batches=EXPORT_CPU_BATCHES))
+    for name, (batch, count) in EXPORT_VGG.items():
+        seeded = ["--backbone", name, "--random-weights", "--seed", str(SEED)]
+        eager, _ = _serve_counted(seeded + [
+            "--no-fold-bn", "--no-eval", "--limit", str(count),
+            "--batch-size", str(batch)])
+        images = EXPORT_DIR / f"{name}.npy"
+        np.save(images, np.concatenate(eager.images))
+        exports[name] = dict(
+            argv=seeded + ["--export-batch", str(batch)],
+            eager=_concat(_host_results(eager)),
+            job=dict(path=str(EXPORT_DIR / f"ssd_{name}_b{batch}.pt2"),
+                     images=str(images), out=str(EXPORT_DIR / f"{name}.npz"),
+                     batch=batch, cpu_batches=1))
+        del eager
+    for name, e in exports.items():
+        e["export_s"], e["size_mib"] = _export(e["argv"],
+                                               Path(e["job"]["path"]))
+    report = _serve_fresh([e["job"] for e in exports.values()])
+    print(f"export: fresh process ({report['seconds']:.1f} s; "
+          f"tfssd_torch.models modules imported "
+          f"{report['model_modules']})")
+    out = {}
+    for (name, e), r in zip(exports.items(), report["jobs"]):
+        job = e["job"]
+        d_card = _nms_distance(r["card"], e["eager"])
+        cli = ["--export", job["path"]] + e["argv"]
+        print(f"export: {name}: predict.main({cli}) wrote "
+              f"{e['size_mib']:.2f} MiB in {e['export_s']:.1f} s; "
+              f"loaded in {r['load_s']:.2f} s, {r['calls']} calls of "
+              f"{job['batch']} on the card, nms_keep launches="
+              f"{r['launches']}; against the eager --no-fold-bn run "
+              f"({len(e['eager'].valid)} images): {d_card} (bit-equal: "
+              f"{d_card['boxes'] == d_card['scores'] == 0.0})")
+        _check_nms_distance(d_card, f"{name}: card against eager")
+        images = np.load(job["images"])[:job["batch"] * job["cpu_batches"]]
+        weights = str(TRAINED_DIR) if name == "mobilenet_v2" else None
+        d_cpu = _nms_distance(r["cpu"], _cpu_eager(name, weights, images))
+        print(f"export: {name}: artifact on the CPU against the port's CPU "
+              f"path ({len(images)} images): {d_cpu}")
+        _check_nms_distance(d_cpu, f"{name}: CPU against the port's CPU "
+                                   f"path")
+        out[name] = dict(launches=r["launches"], size_mib=e["size_mib"],
+                         export_s=e["export_s"], card=d_card, cpu=d_cpu)
+        if name != "mobilenet_v2":
+            os.remove(job["path"])
+    card = report["jobs"][0]["card"]
     artifact_map = _results_map(card, get_hyper_params("mobilenet_v2"))
     gap = abs(artifact_map - TRAINED_MAP_JAX)
-    print(f"export: artifact on the card against the eager --no-fold-bn run "
-          f"({len(images)} images): {d_card} (bit-equal: "
-          f"{d_card['boxes'] == d_card['scores'] == 0.0}); mAP "
-          f"{artifact_map!r} (eager unfolded {unfolded['mean_ap']!r}), "
-          f"|diff| from the JAX predictor's {gap:.3g} (gate "
-          f"{TRAINED_MAP_GATE})")
-    _check_nms_distance(d_card, "card against eager")
+    print(f"export: mobilenet_v2 artifact mAP {artifact_map!r} (eager "
+          f"unfolded {unfolded['mean_ap']!r}), |diff| from the JAX "
+          f"predictor's {gap:.3g} (gate {TRAINED_MAP_GATE})")
     if gap > TRAINED_MAP_GATE:
         raise AssertionError(f"export: artifact mAP {artifact_map} is {gap} "
                              f"from {TRAINED_MAP_JAX}")
-    cfg, cpu_model = predict.load_model("mobilenet_v2", str(TRAINED_DIR),
-                                        device="cpu", fold_bn=False)
-    anchors = torch.from_numpy(generate_anchors(cfg))
-    n_cpu = EXPORT_CPU_BATCHES * EXPORT_BATCH
-    with torch.no_grad():
-        deltas, logits = cpu_model(preprocess_images(torch.from_numpy(
-            images[:n_cpu])))
-        cpu_eager = decode_predictions(anchors, deltas, logits, cfg)
-    d_cpu = _nms_distance(cpu, nms.NMSResult(*(t.numpy()
-                                               for t in cpu_eager)))
-    print(f"export: artifact on the CPU against the port's CPU path "
-          f"({n_cpu} images): {d_cpu}")
-    _check_nms_distance(d_cpu, "CPU against the port's CPU path")
     timing = time_export(EXPORT_DIR / "ssd_mobilenet_v2_bf16_b256.pt2")
-    return dict(launches=report["launches"], size_mib=size / 2**20,
-                export_s=export_s, card=d_card, cpu=d_cpu,
-                mean_ap=artifact_map, **timing)
+    return dict(out["mobilenet_v2"], mean_ap=artifact_map, vgg={
+        name: out[name] for name in EXPORT_VGG}, **timing)
 
 
 def time_export(path: Path) -> dict:
@@ -1436,6 +1528,250 @@ def time_export(path: Path) -> dict:
           f"NMSResults bit-equal {same}; {CARD_LINE})")
     return dict(live_img_per_s=live_ips, artifact_img_per_s=art_ips,
                 bf16_same=same)
+
+
+# The resume phase: the JAX trainer's committed checkpoint, read whole
+# without orbax (weights, BatchNorm statistics, Adam's moments and counts)
+# and continued by the port's trainer --resume.
+RESUME_DIR = ROOT / "build" / "chip_smoke_resume"
+RESUME_STEP = 7680
+# the JAX run's schedule geometry (its sidecar): 2 steps an epoch at batch
+# 8, so step 7680 starts epoch 3840
+RESUME_SIDECAR = TRAINED_DIR.parent / "ssd_mobilenet_v2_meta.json"
+RESUME_BATCH = 8
+RESUME_STEPS_PER_EPOCH = 2
+RESUME_EPOCH = RESUME_STEP // RESUME_STEPS_PER_EPOCH
+# the restored model's eval loss terms on the card against the CPU's, the
+# float32 train step's loss gate (STEP_GATES["mobilenet_v2"]); eval-mode
+# BatchNorm at the trained weights is better conditioned than that step
+RESUME_EVAL_GATE = 2e-5
+
+
+def _resume_model_dir(name: str) -> Path:
+    """A model directory holding the committed JAX step (linked) and the JAX
+    run's sidecar (copied), as trainer.py --model-dir would find them."""
+    root = RESUME_DIR / name
+    if root.exists():
+        shutil.rmtree(root)
+    (root / "ssd_mobilenet_v2").mkdir(parents=True)
+    (root / "ssd_mobilenet_v2" / str(RESUME_STEP)).symlink_to(
+        (TRAINED_DIR / str(RESUME_STEP)).resolve())
+    shutil.copy(RESUME_SIDECAR, root / "ssd_mobilenet_v2_meta.json")
+    return root
+
+
+def _digest(*paths: Path) -> dict:
+    """{file: sha256} of every file under `paths` (links followed)."""
+    import hashlib
+
+    out = {}
+    for top in paths:
+        files = [top] if top.is_file() else sorted(
+            Path(d) / f for d, _, fs in os.walk(top, followlinks=True)
+            for f in fs)
+        for f in files:
+            out[str(f)] = hashlib.sha256(f.read_bytes()).hexdigest()
+    return out
+
+
+def _resume_run(root: Path, epochs: int, label: str):
+    """trainer.main(--resume) on `root` at the JAX run's geometry up to
+    `epochs`, cuDNN deterministic: (run, match_encode launches counted
+    from 0, its printed lines). Launches must equal its train steps +
+    validation batches, its metrics finite."""
+    import contextlib
+    import io
+
+    argv = ["--device", "cuda", "--batch-size", str(RESUME_BATCH),
+            "--steps-per-epoch", str(RESUME_STEPS_PER_EPOCH),
+            "--synthetic-size", "64", "--val-limit", "1", "--log-every", "1",
+            "--seed", str(SEED), "--resume", "--epochs", str(epochs),
+            "--model-dir", str(root),
+            "--log-dir", str(RESUME_DIR / "logs")]
+    printed = io.StringIO()
+    match_encode.LAUNCHES = 0
+    with contextlib.redirect_stdout(printed):
+        run = trainer.main(argv)
+    torch.cuda.synchronize()
+    launches = match_encode.LAUNCHES
+    want = run.steps_run + run.val_batches
+    losses = [m["loss"] for m in run.step_metrics]
+    print(f"resume: {label}: {run.steps_run} steps + {run.val_batches} "
+          f"validation batches to step {run.state.step}, match_encode "
+          f"launches={launches}, losses {losses}, val_losses "
+          f"{run.val_losses}; the trainer printed: "
+          + " | ".join(printed.getvalue().strip().splitlines()[:3]))
+    if launches != want:
+        raise AssertionError(f"resume: {label}: match_encode launched "
+                             f"{launches} times for {want} train steps + "
+                             f"val batches")
+    values = [v for m in run.step_metrics for v in m.values()] + list(
+        run.val_losses.values())
+    if not values or not all(math.isfinite(v) for v in values):
+        raise AssertionError(f"resume: {label}: non-finite metric")
+    return run, launches, printed.getvalue()
+
+
+def resume_phase() -> dict:
+    """The committed JAX checkpoint read whole, restored on the card and on
+    the CPU (the eval losses held against each other), its first step in
+    float32 and bfloat16 against the float64 CPU witness (printed), then
+    `trainer.main([..., "--model-dir", <the step linked in>, "--resume"])`
+    at the JAX run's geometry: 2 steps from 7680, a second --resume from
+    the port's own checkpoint, and an uninterrupted 4-step run that the
+    two must equal, cuDNN deterministic. The JAX step directory (the
+    committed files, linked) and the JAX run's sidecar stay byte for
+    byte."""
+    from tfssd_torch.utils.checkpoint import OrbaxCheckpoints
+
+    t0 = time.perf_counter()
+    tree = OrbaxCheckpoints(str(TRAINED_DIR)).restore_train_state(
+        RESUME_STEP)
+    read_s = time.perf_counter() - t0
+    leaves = flatten_tree(tree)
+    opt = [a for k, a in leaves.items() if k.startswith("opt_state/")]
+    counts = [int(leaves[k]) for k in ("step", "opt_state/0/count",
+                                       "opt_state/1/count")]
+    mib = sum(a.nbytes for a in leaves.values()) / 2**20
+    print(f"resume: {TRAINED_DIR / str(RESUME_STEP)} read whole in "
+          f"{read_s:.2f} s: {len(leaves)} arrays, {mib:.2f} MiB, of them "
+          f"opt_state {len(opt)} arrays, "
+          f"{sum(a.nbytes for a in opt) / 2**20:.2f} MiB; step, Adam's "
+          f"count, the schedule's count {counts}")
+    if counts != [RESUME_STEP] * 3 or len(opt) != 410:
+        raise AssertionError(f"resume: read {len(opt)} opt_state arrays, "
+                             f"counts {counts}")
+
+    cfg = get_hyper_params("mobilenet_v2")
+    ds = SyntheticDataset(RESUME_BATCH, image_size=cfg.img_size, seed=SEED)
+    host, _ = stage_arrays(ds, cfg.max_gt_boxes)
+    evals = {}
+    for where, dev in (("card", CARD), ("cpu", torch.device("cpu"))):
+        state = create_train_state(cfg, SEED, dev, make_lr_schedule(
+            RESUME_STEPS_PER_EPOCH))
+        t0 = time.perf_counter()
+        OrbaxCheckpoints(str(TRAINED_DIR)).restore(state, RESUME_STEP)
+        restore_s = time.perf_counter() - t0
+        p = next(state.model.parameters())
+        adam = state.optimizer.state[p]
+        if (state.step != RESUME_STEP or p.device.type != dev.type
+                or adam["exp_avg"].device.type != dev.type
+                or adam["step"].device.type != "cpu"
+                or float(adam["step"]) != RESUME_STEP):
+            raise AssertionError(f"resume: restored on {dev}: step "
+                                 f"{state.step}, Adam's step {adam['step']}")
+        anchors = torch.from_numpy(generate_anchors(cfg)).to(dev)
+        batch = {k: torch.from_numpy(host[k]).to(dev)
+                 for k in ("image", "boxes", "labels")}
+        evals[where] = {k: float(v) for k, v in train.make_eval_step(
+            anchors, cfg)(state, batch).items()}
+        print(f"resume: restored into the port's TrainState on {dev} in "
+              f"{restore_s:.2f} s; eval metrics {evals[where]}")
+        if where == "card":
+            # the resumed train step as the trainer runs it (augmentation
+            # on), the batch on the card
+            step = make_train_step(anchors, cfg, seed=SEED + 1)
+            step_ms = time_ms(lambda: step(state, batch), 20)
+            print(f"resume: the resumed train step at batch {RESUME_BATCH}"
+                  f": {step_ms:.3f} ms ({CARD_LINE})")
+        del state
+    eval_gap = max(abs(evals["card"][k] / evals["cpu"][k] - 1)
+                   for k in ("loss", "loc_loss", "conf_loss"))
+    print(f"resume: eval loss terms, card against CPU: {eval_gap:.3g} "
+          f"(gate {RESUME_EVAL_GATE})")
+    if not eval_gap <= RESUME_EVAL_GATE or (
+            evals["card"]["num_pos"] != evals["cpu"]["num_pos"]):
+        raise AssertionError(f"resume: eval on the card {evals['card']} "
+                             f"against the CPU {evals['cpu']}")
+
+    # the first step from the trained weights, float32 and bfloat16 on the
+    # card, against the float64 CPU witness (printed: PERF.md's question)
+    bf16 = dataclasses.replace(cfg, compute_dtype=BF16)
+    steps = {"float32": _one_train_step(cfg, "cuda", host,
+                                        checkpoint=TRAINED_DIR),
+             "bfloat16": _one_train_step(bf16, "cuda", host,
+                                         checkpoint=TRAINED_DIR),
+             "float64_cpu": _one_train_step(cfg, "cpu", host, torch.float64,
+                                            checkpoint=TRAINED_DIR)}
+    names = sorted(steps["float64_cpu"][1])
+    head = [n for n in names if n.startswith("head.")]
+    step_d = {}
+    for run_name in ("float32", "bfloat16"):
+        d = _distances(steps[run_name], steps["float64_cpu"], names, head)
+        d["grad_norm"] = abs(steps[run_name][0]["grad_norm"]
+                             / steps["float64_cpu"][0]["grad_norm"] - 1)
+        step_d[run_name] = d
+    bf_f32 = _distances(steps["bfloat16"], steps["float32"], names, head)
+    print(f"resume: first step from the trained weights (batch "
+          f"{RESUME_BATCH}, no augmentation): metrics "
+          + "; ".join(f"{k} {v[0]}" for k, v in steps.items())
+          + f"; against the float64 CPU witness: {step_d}; bfloat16 "
+          f"against float32: {bf_f32} ({CARD_LINE})")
+    for run_name, d in step_d.items():
+        if not (d["num_pos"] and all(math.isfinite(d[k]) for k in (
+                "loss", "head", "whole", "grad_norm"))):
+            raise AssertionError(f"resume: {run_name} step {d}")
+
+    saved = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        a = _resume_model_dir("a")
+        jax_files = _digest(a / "ssd_mobilenet_v2",
+                            a / "ssd_mobilenet_v2_meta.json")
+        first, launches, printed = _resume_run(a, RESUME_EPOCH + 1,
+                                               "from the JAX checkpoint")
+        said = (f"resumed from step {RESUME_STEP} of the JAX package's "
+                f"checkpoint {a / 'ssd_mobilenet_v2'}")
+        written = sorted(os.listdir(a / "ssd_mobilenet_v2_torch"))
+        if (said not in printed or "WARNING" in printed
+                or first.steps_run != RESUME_STEPS_PER_EPOCH
+                or first.state.step != RESUME_STEP + RESUME_STEPS_PER_EPOCH
+                or written != [f"ckpt_{first.state.step}.json",
+                               f"ckpt_{first.state.step}.pt"]):
+            raise AssertionError(f"resume: the first run: step "
+                                 f"{first.state.step}, wrote {written}")
+        second, launches_own, printed = _resume_run(
+            a, RESUME_EPOCH + 2, "again, from the port's own checkpoint")
+        if (f"resumed from step {first.state.step}\n" not in printed
+                or "JAX" in printed
+                or second.steps_run != RESUME_STEPS_PER_EPOCH
+                or second.state.step != first.state.step
+                + RESUME_STEPS_PER_EPOCH):
+            raise AssertionError(f"resume: the second run did not continue "
+                                 f"the port's checkpoint (step "
+                                 f"{second.state.step})")
+        whole, launches_whole, _ = _resume_run(
+            _resume_model_dir("b"), RESUME_EPOCH + 2,
+            "uninterrupted, from the JAX checkpoint")
+    finally:
+        torch.backends.cudnn.deterministic = saved
+    split = first.step_metrics + second.step_metrics
+    gap = {k: max(abs(g[k] - w[k]) / max(abs(w[k]), 1e-30)
+                  for g, w in zip(split, whole.step_metrics))
+           for k in whole.step_metrics[0]}
+    val_split = {**first.val_losses, **second.val_losses}
+    weights_equal = all(
+        torch.equal(x, y) for x, y in zip(
+            whole.state.model.state_dict().values(),
+            second.state.model.state_dict().values()))
+    equal = (split == whole.step_metrics and val_split == whole.val_losses
+             and weights_equal)
+    print(f"resume: 2 + 2 steps against 4 uninterrupted (cuDNN "
+          f"deterministic): metrics, validation losses and weights "
+          f"bit-equal {equal} (weights {weights_equal}; largest relative "
+          f"metric difference {gap}; validation {val_split} / "
+          f"{whole.val_losses})")
+    if not equal or whole.steps_run != 2 * RESUME_STEPS_PER_EPOCH:
+        raise AssertionError("resume: the resumed-then-resumed run differs "
+                             "from the uninterrupted one")
+    if _digest(a / "ssd_mobilenet_v2",
+               a / "ssd_mobilenet_v2_meta.json") != jax_files:
+        raise AssertionError("resume: the JAX step directory or sidecar "
+                             "changed")
+    shutil.rmtree(RESUME_DIR)
+    return dict(launches=launches, launches_own=launches_own,
+                launches_whole=launches_whole, read_s=read_s, mib=mib,
+                step_ms=step_ms, steps=step_d)
 
 
 # The data-parallel phase: trainer.main under a process group on the one
@@ -1838,14 +2174,21 @@ def train_path_that_fits(backbone: str, flags: Sequence[str] = ()):
 
 
 def _one_train_step(cfg, device: str, host, dtype=torch.float32,
-                    tf32: bool = False):
+                    tf32: bool = False, checkpoint=None):
     """(metrics, {name: gradient on the CPU}) of one train step without
-    augmentation from the seeded weights, on `device`, with the model in
+    augmentation from the seeded weights (or the whole TrainState of the
+    JAX checkpoint directory `checkpoint`), on `device`, with the model in
     `dtype` (the images scaled by /255 in float32, as the step does) and
     cuDNN and matmuls in TF32 if `tf32`."""
+    from tfssd_torch.utils.checkpoint import OrbaxCheckpoints
+
     dev = torch.device(device)
     state = create_train_state(cfg, SEED, dev, make_lr_schedule(TRAIN_STEPS))
+    if checkpoint is not None:
+        OrbaxCheckpoints(str(checkpoint)).restore(state)
     state.model.to(dtype)
+    # Adam's moments take the parameters' dtype when its state is loaded
+    state.optimizer.load_state_dict(state.optimizer.state_dict())
     anchors = torch.from_numpy(generate_anchors(cfg)).to(dev)
     step = make_train_step(anchors, cfg, augment=False)
     batch = {k: torch.from_numpy(host[k]).to(dev)
@@ -2335,6 +2678,11 @@ def main() -> int:
     dp = dp_phase()
     print(f"dp: phase took {time.perf_counter() - t_phase:.1f} s")
 
+    section("4e. resume")
+    t_phase = time.perf_counter()
+    resumed = resume_phase()
+    print(f"resume: phase took {time.perf_counter() - t_phase:.1f} s")
+
     section("5. timing")
     fits = time_serving(run, images[64], ((PATH_BATCH, 30), (64, 10)),
                         "mobilenet_v2")
@@ -2406,6 +2754,9 @@ def main() -> int:
     entry["launches_trained_mobilenet_v2"] = trained_run["launches"]
     entry["launches_trained_bf16_mobilenet_v2"] = trained_run["launches_bf16"]
     entry["launches_export_fresh_process"] = exported["launches"]
+    for name, e in exported["vgg"].items():
+        entry[f"launches_export_fresh_process_{name}"] = e["launches"]
+        entry[f"export_size_mib_{name}"] = e["size_mib"]
     entry.update({f"export_{k}": exported[k] for k in (
         "live_img_per_s", "artifact_img_per_s", "size_mib")})
     for r, row in trained_run["keep_rows"].items():
@@ -2437,6 +2788,9 @@ def main() -> int:
         for label, reading in runs.items():
             match_entry[f"launches_voc_{name}_{label}"] = reading.launches
     match_entry["launches_dp_nccl1"] = dp["nccl1"]
+    match_entry["launches_resume_jax_checkpoint"] = resumed["launches"]
+    match_entry["launches_resume_own_checkpoint"] = resumed["launches_own"]
+    match_entry["launches_resume_uninterrupted"] = resumed["launches_whole"]
     for rank, n in enumerate(dp["gloo2"]):
         match_entry[f"launches_dp_gloo2_rank{rank}"] = n
     print(json.dumps({"kernels": [entry, match_entry]}))

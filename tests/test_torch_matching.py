@@ -116,16 +116,25 @@ def test_plain_matcher_matches_jax_and_pallas(backbone):
     jcfg, tcfg = j_hyper(backbone, **kw), t_hyper(backbone, **kw)
     anchors = generate_anchors(jcfg)
     boxes, labels = _random_gt(np.random.default_rng(0), 4, 16)
+    inputs = [a.copy() for a in (anchors, boxes, labels)]
     got = _port(anchors, boxes, labels, tcfg)
     args = (jnp.asarray(anchors), jnp.asarray(boxes), jnp.asarray(labels),
             jcfg)
     eager = j_match_batch(*args)
     pallas = match_batch_pallas(*args, interpret=True)
-    # On a failure the message says which side moved (one whole run once
-    # read 88 of 36,288 deltas 1.7e-4 from JAX's eager matcher).
+    # On a failure the message says which side moved (two whole runs once
+    # read 88 of 36,288 deltas 1.7e-4 from JAX's eager matcher, the port's
+    # side moved), whether the port computes the same again after the JAX
+    # calls, and whether the inputs changed meanwhile.
+    again = _port(anchors, boxes, labels, tcfg)[0].numpy()
     msg = _sides_from_f64(_encode_f64(anchors, boxes, labels, tcfg),
-                          port=got[0].numpy(), jax_match_batch=eager[0],
-                          jax_pallas=pallas[0])
+                          port=got[0].numpy(), port_again=again,
+                          jax_match_batch=eager[0], jax_pallas=pallas[0])
+    unchanged = all(np.array_equal(a, b) for a, b in
+                    zip(inputs, (anchors, boxes, labels)))
+    msg += (f"; inputs unchanged {unchanged}; torch at "
+            f"{torch.get_num_threads()} threads, "
+            f"{torch.backends.cpu.get_cpu_capability()}")
     _assert_same(got, eager, msg)
     _assert_same(got, pallas, msg)
     assert got[1][..., 1:].sum() > 0  # the gts match some anchors

@@ -55,6 +55,19 @@ profiling.py). --pallas and --handle-gpu are accepted so that the JAX
 trainer's command lines parse: on the card the match/encode kernel always
 runs. Not ported: --port-h5 (a Keras trunk file; ROADMAP.md).
 
+--resume reads, in this order: the latest of the port's own checkpoints
+under <model-dir>/ssd_<backbone>_torch; where there is none, the latest
+step of the JAX trainer's orbax checkpoint under <model-dir>/ssd_<backbone>
+(e.g. the committed trained/ssd_mobilenet_v2/7680), restored whole as
+trainer.py --resume restores it: the step, params, batch_stats and
+optax Adam's moments and counts (utils/checkpoint.py:OrbaxCheckpoints).
+So `python -m tfssd_torch.trainer --model-dir trained --resume` continues
+in the port what `python trainer.py --model-dir trained --resume` would
+continue, and a second --resume continues the port's own run. The schedule
+geometry is compared with the sidecar of the checkpoint read
+(<dir>_meta.json) and a change warned about; the JAX trainer's directory
+and sidecar are only read, and only the port's sidecar is written.
+
 Data parallelism (tfssd_torch/parallel.py), as the JAX trainer shards its
 batch over every visible device: under torchrun each rank trains on its
 rows of every global batch of --batch-size (which must divide into the
@@ -94,8 +107,9 @@ from tfssd_torch.train import (TrainState, create_train_state,
                                make_lr_schedule, make_multi_train_step,
                                make_train_step)
 from tfssd_torch.utils import profiling
-from tfssd_torch.utils.checkpoint import CheckpointManager
-from tfssd_torch.utils.io import (get_log_path, get_model_path, handle_args,
+from tfssd_torch.utils.checkpoint import CheckpointManager, OrbaxCheckpoints
+from tfssd_torch.utils.io import (get_jax_model_path, get_log_path,
+                                  get_model_path, handle_args,
                                   parse_data_root)
 from tfssd_torch.utils.metrics import MetricsLogger
 
@@ -180,7 +194,11 @@ def build_parser():
     p.add_argument("--val-split", default="val")
     p.add_argument("--synthetic-size", type=int, default=512)
     p.add_argument("--no-augment", action="store_true")
-    p.add_argument("--resume", action="store_true")
+    p.add_argument("--resume", action="store_true",
+                   help="continue the latest checkpoint: the port's own "
+                        "under <model-dir>/ssd_<backbone>_torch, else the "
+                        "JAX trainer's orbax checkpoint under "
+                        "<model-dir>/ssd_<backbone> (read only)")
     p.add_argument("--init-lr", type=float, default=1e-3)
     p.add_argument("--bf16", action="store_true",
                    help="bfloat16 conv trunk and heads (float32 parameters)")
@@ -417,17 +435,31 @@ def _train(args, shard: parallel.Shard, dev: torch.device) -> TrainRun:
     meta = {"steps_per_epoch": steps_per_epoch,
             "batch_size": args.batch_size, "steps_per_call": spc}
     meta_path = os.path.normpath(model_path) + "_meta.json"
-    if args.resume and ckpt.latest_step() is not None:
-        if os.path.exists(meta_path):
-            with open(meta_path) as f:
-                old_meta = json.load(f)
-            if old_meta != meta:
-                print(f"WARNING: resuming with changed schedule geometry "
-                      f"(checkpoint: {old_meta}, this run: {meta}) - the "
-                      f"resume epoch and LR decay boundaries will NOT line "
-                      f"up with the original run")
-        ckpt.restore(state)
-        print(f"resumed from step {state.step}")
+    if args.resume:
+        # the port's own checkpoint first, else the JAX trainer's (read
+        # only: its directory and sidecar are never written)
+        jax_path = get_jax_model_path(args.backbone, args.model_dir)
+        source, source_meta = ckpt, meta_path
+        if ckpt.latest_step() is None:
+            source = OrbaxCheckpoints(jax_path)
+            source_meta = os.path.normpath(jax_path) + "_meta.json"
+        if source.latest_step() is not None:
+            if os.path.exists(source_meta):
+                with open(source_meta) as f:
+                    old_meta = json.load(f)
+                if old_meta != meta:
+                    print(f"WARNING: resuming with changed schedule "
+                          f"geometry (checkpoint: {old_meta}, this run: "
+                          f"{meta}) - the resume epoch and LR decay "
+                          f"boundaries will NOT line up with the original "
+                          f"run")
+            source.restore(state)
+            if source is ckpt:
+                print(f"resumed from step {state.step}")
+            else:
+                print(f"resumed from step {state.step} of the JAX "
+                      f"package's checkpoint {jax_path} (params, "
+                      f"batch_stats and Adam's state)")
     parallel.broadcast_state(state.model, state.optimizer, shard)
     # every rank has read the sidecar before rank 0 rewrites it
     parallel.barrier(shard)

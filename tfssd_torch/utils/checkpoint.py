@@ -22,6 +22,9 @@ store (utils/ocdbt.py) holds each leaf as a zarr v2 array: <name>/.zarray
 chunk (indices joined by the separator; "0" for a scalar), each a zstd
 frame (utils/zstd.py) or raw bytes. A chunk that is absent reads as the
 fill value (0 where it is null). <name> is the leaf's path joined by ".".
+Besides the weights a step holds optax.adam's state (opt_state.0.count,
+.mu, .nu and the schedule's opt_state.1.count): `restore` loads it whole
+into the port's TrainState, so the port's --resume continues a JAX run.
 """
 
 from __future__ import annotations
@@ -30,13 +33,14 @@ import json
 import math
 import os
 import re
-from typing import Any, Dict, List, Optional
+from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
 from tfssd_torch.train import TrainState
 from tfssd_torch.utils import zstd
+from tfssd_torch.utils.convert import flatten_tree, load_train_state
 from tfssd_torch.utils.ocdbt import OcdbtStore
 
 _NAME = re.compile(r"^ckpt_(\d+)\.json$")
@@ -124,8 +128,10 @@ _EMPTY = {"Dict": dict, "List": list, "Tuple": tuple, "None": lambda: None}
 
 class OrbaxCheckpoints:
     """The JAX package's checkpoint directory, read-only: latest_step(),
-    best_step() and restore_weights(step), as its CheckpointManager
-    (best_fn = val_loss, best_mode = "min") gives them."""
+    best_step(), restore_weights(step) and the whole TrainState
+    (restore_train_state(step), restore(state, step)), as its
+    CheckpointManager (best_fn = val_loss, best_mode = "min") gives
+    them."""
 
     def __init__(self, directory: str):
         self.directory = os.path.abspath(directory)
@@ -168,6 +174,70 @@ class OrbaxCheckpoints:
         """{'step', 'params', 'batch_stats'} of checkpoint `step` (default:
         the latest) as numpy: the step a 0-d array, the others nested dicts
         keyed by the Flax names. No optimizer state is read."""
+        item, out = self._read(step, WEIGHT_COLLECTIONS)
+        missing = set(WEIGHT_COLLECTIONS) - set(out)
+        if missing:
+            raise KeyError(f"{item}: no {sorted(missing)}")
+        return out
+
+    def restore_train_state(self, step: Optional[int] = None
+                            ) -> Dict[str, Any]:
+        """The whole TrainState of checkpoint `step` (default: the latest),
+        as the JAX trainer's --resume restores it, in numpy: {'step',
+        'params', 'batch_stats', 'opt_state': {'0': {'count', 'mu', 'nu'},
+        '1': {'count'}}}, keyed by the Flax names and optax's chain index
+        (optax.adam(schedule) = scale_by_adam, scale_by_learning_rate).
+        Raises ValueError where the tree is not that chain's, where mu or
+        nu does not have params' keys and shapes, or where the step and the
+        two counts differ (the port's schedule reads the step, optax's
+        scale_by_learning_rate its own count)."""
+        item, out = self._read(step, None)
+        if sorted(out) != sorted(WEIGHT_COLLECTIONS + ("opt_state",)):
+            raise ValueError(f"{item}: a TrainState has step, params, "
+                             f"batch_stats and opt_state, not {sorted(out)}")
+        opt = out["opt_state"]
+        if (not isinstance(opt, dict) or sorted(opt) != ["0", "1"]
+                or not isinstance(opt["0"], dict)
+                or not isinstance(opt["1"], dict)
+                or sorted(opt["0"]) != ["count", "mu", "nu"]
+                or sorted(opt["1"]) != ["count"]):
+            raise ValueError(
+                f"{item}: opt_state is not optax.adam's chain (scale_by_adam"
+                f" {{count, mu, nu}}, scale_by_learning_rate {{count}}); "
+                f"its leaves: {sorted(flatten_tree(opt))[:8]}")
+        params = _shapes(out["params"])
+        for moment in ("mu", "nu"):
+            if _shapes(opt["0"][moment]) != params:
+                raise ValueError(f"{item}: Adam's {moment} does not have "
+                                 f"the keys and shapes of params")
+        counts = {"step": int(out["step"]),
+                  "opt_state.0.count": int(opt["0"]["count"]),
+                  "opt_state.1.count": int(opt["1"]["count"])}
+        if len(set(counts.values())) != 1:
+            raise ValueError(f"{item}: the step and Adam's and the "
+                             f"schedule's counts differ: {counts}")
+        return out
+
+    def restore(self, state: TrainState,
+                step: Optional[int] = None) -> TrainState:
+        """Load checkpoint `step` (default: the latest) whole into the
+        port's `state`: the weights and BatchNorm statistics, Adam's
+        moments and count (utils/convert.py:load_train_state) and the
+        step, on the device its model lives on."""
+        tree = self.restore_train_state(step)
+        adam = tree["opt_state"]["0"]
+        load_train_state(state.model, state.optimizer,
+                         {"params": tree["params"],
+                          "batch_stats": tree["batch_stats"]},
+                         adam["mu"], adam["nu"], int(adam["count"]))
+        state.step = int(tree["step"])
+        return state
+
+    def _read(self, step: Optional[int],
+              collections: Optional[Tuple[str, ...]]
+              ) -> Tuple[str, Dict[str, Any]]:
+        """(the step's item directory, its leaves under `collections`, or
+        all of them, as nested dicts of numpy arrays)."""
         if step is None:
             step = self.latest_step()
         if step is None:
@@ -182,7 +252,7 @@ class OrbaxCheckpoints:
         out: Dict[str, Any] = {}
         for entry in meta["tree_metadata"].values():
             path = [k["key"] for k in entry["key_metadata"]]
-            if path[0] not in WEIGHT_COLLECTIONS:
+            if collections is not None and path[0] not in collections:
                 continue
             meta_value = entry["value_metadata"]
             if meta_value.get("skip_deserialize"):
@@ -197,10 +267,12 @@ class OrbaxCheckpoints:
             for key in path[:-1]:
                 node = node.setdefault(key, {})
             node[path[-1]] = value
-        missing = set(WEIGHT_COLLECTIONS) - set(out)
-        if missing:
-            raise KeyError(f"{item}: no {sorted(missing)}")
-        return out
+        return item, out
+
+
+def _shapes(tree: Dict[str, Any]) -> Dict[str, Tuple[int, ...]]:
+    """{'a/b': shape} of a nested dict of arrays."""
+    return {k: v.shape for k, v in flatten_tree(tree).items()}
 
 
 _FILL = {"NaN": math.nan, "Infinity": math.inf, "-Infinity": -math.inf}

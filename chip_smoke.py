@@ -222,6 +222,32 @@ Phases, in order; any failure ends the run with a non-zero exit:
               uninterrupted one bit for bit (every step's metrics, the
               validation losses, the weights); the JAX step and sidecar
               are byte for byte as before.
+  4f. port-h5 — Keras trunk files of seeded arrays, written by
+              tfssd_torch.make_keras_drill under build/ (the card's machine
+              has no Keras or h5py): MobileNetV2 as .h5 and .keras,
+              SSD300-VGG16 as .h5. `predict.main(["--port-h5", <.h5>,
+              "--limit", "32", "--batch-size", "8", "--no-fold-bn"])` over
+              the committed checkpoint: every trunk tensor of the served
+              model bit-equal to the file's array (after the Flax -> torch
+              layout), every other one to the checkpoint's, nms_keep
+              launched once a batch, the outputs and NMSResults held
+              against the CPU by phase 4's gates; the same with the .keras
+              (its NMSResults bit-equal to the .h5 run's) and with
+              BatchNorm folded (the default). `trainer.main(["--port-h5",
+              <.h5>, ...])` on synthetic data at batch 8, 2 steps and 1
+              validation batch: the state just after the graft holds the
+              file's trunk and the seeded rest, match_encode launched 3
+              times, finite losses, every ported trunk parameter moved by
+              Adam, which holds the model's parameters; the run's
+              TensorBoard event file read back (each record's CRC-32Cs
+              checked) equal to its metrics.jsonl, scalar for scalar. A
+              second `trainer.main([..., "--resume"])` on the same model
+              directory grafts the file, then restores its checkpoint:
+              weights bit-equal to the first run's last. `predict.main([
+              "--backbone", "vgg16", "--random-weights", "--port-h5", <.h5>,
+              "--limit", "8", "--batch-size", "2"])`: conv1_1 .. conv5_3
+              from the file, the rest seeded, a launch a batch, the first
+              batch against the CPU.
   5. timing — serving img/s at batch 8 and 64 (device-resident uint8
               images -> NMSResult), for each VGG16 config at batch 8 and
               the largest of 64 / 32 that fits; train ms/step, img/s and
@@ -258,8 +284,11 @@ Phases, in order; any failure ends the run with a non-zero exit:
      launches_resume_{jax_checkpoint,own_checkpoint,uninterrupted};
      nms_keep's in the export phase's fresh process as
      launches_export_fresh_process[_<vgg config>], with the artifacts'
-     sizes and the live and artifact img/s), then the one-line JSON
-     result, last.
+     sizes and the live and artifact img/s; nms_keep's on the port-h5
+     phase's serving runs as launches_port_h5_{predict_h5,predict_keras,
+     predict_h5_fold,predict_vgg16} and match_encode's on its trainer runs
+     as launches_port_h5_{train,resume}), then the one-line JSON result,
+     last.
 
 It exits non-zero without a result when no CUDA device is available, and
 in a directory that holds this script without the tfssd_torch package
@@ -267,8 +296,8 @@ in a directory that holds this script without the tfssd_torch package
 from the checkout's root and writes nothing outside build/. The whole run
 takes ~390-445 s on an NVIDIA H100 80GB HBM3 at 700 W (PERF.md §6): phase
 4b ~68 s, 4c ~43-54 s, 4d ~42-51 s with its two process groups started
-together; phase 4b's 300-pixel drill tree was halved to make room for 4d's
-float64 runs.
+together, 4f ~13 s (429.4 s in all with it); phase 4b's 300-pixel drill
+tree was halved to make room for 4d's float64 runs.
 """
 
 from __future__ import annotations
@@ -306,7 +335,7 @@ from tfssd_torch.ops.kernels.match_encode_cases import (match_cases,
 from tfssd_torch.ops.kernels.nms_keep_cases import keep_cases
 from tfssd_torch.profile_nms_keep import host_us
 from tfssd_torch.utils import profiling
-from tfssd_torch.utils.convert import flatten_tree
+from tfssd_torch.utils.convert import flatten_tree, variables_to_state_dict
 from tfssd_torch.train import (create_train_state, make_cached_train_step,
                                make_lr_schedule, make_train_step)
 
@@ -1774,6 +1803,229 @@ def resume_phase() -> dict:
                 step_ms=step_ms, steps=step_d)
 
 
+# The port-h5 phase: Keras trunk files of seeded arrays (written by
+# tfssd_torch.make_keras_drill: the card's machine has no Keras or h5py to
+# make them) read without Keras by both CLIs' --port-h5, and the trainer's
+# TensorBoard scalars.
+KERAS_DIR = ROOT / "build" / "chip_smoke_keras"
+PORT_H5_IMAGES = 32
+PORT_H5_VGG_IMAGES = 8
+PORT_H5_VGG_BATCH = 2
+PORT_H5_TRAIN_BATCH = 8
+PORT_H5_TRAIN_STEPS = 2
+
+
+def _trunk_state(backbone: str, arrays) -> dict:
+    """The state_dict entries that --port-h5 writes from a trunk's arrays."""
+    from tfssd_torch.utils.port_weights import port_mobilenet_v2, port_vgg16
+
+    porter = port_mobilenet_v2 if backbone == "mobilenet_v2" else port_vgg16
+    return variables_to_state_dict({c: {"backbone": t}
+                                    for c, t in porter(arrays).items()})
+
+
+def _check_state(label: str, state: dict, trunk: dict, rest: dict) -> None:
+    """Every entry of `state` bit-equal to `trunk`'s where it has one, else
+    to `rest`'s."""
+    differ = [k for k, v in state.items()
+              if not torch.equal(v.cpu(), (trunk if k in trunk else rest)[k])]
+    print(f"port-h5: {label}: {len(state)} tensors, the {len(trunk)} of the "
+          f"trunk bit-equal to the file's and the rest to the weights "
+          f"grafted over: {not differ}")
+    if differ:
+        raise AssertionError(f"port-h5: {label}: {len(differ)} tensors "
+                             f"differ, e.g. {differ[:4]}")
+
+
+def _port_h5_train(argv: list, snapshots: list):
+    """trainer.main(argv), the state recorded just after the graft, and
+    match_encode's launches counted from 0: (run, launches)."""
+    real = trainer.port_h5_into_variables
+
+    def recorded(model, backbone, path):
+        real(model, backbone, path)
+        snapshots.append({k: v.detach().cpu().clone()
+                          for k, v in model.state_dict().items()})
+        return model
+
+    trainer.port_h5_into_variables = recorded
+    try:
+        match_encode.LAUNCHES = 0
+        run = trainer.main(argv)
+        torch.cuda.synchronize()
+        return run, match_encode.LAUNCHES
+    finally:
+        trainer.port_h5_into_variables = real
+
+
+def port_h5_phase() -> dict:
+    """predict --port-h5 (MobileNetV2 .h5 and .keras over the committed
+    checkpoint, unfolded and folded; SSD300-VGG16 over seeded weights) and
+    trainer --port-h5 (then --resume), on the card: the served and trained
+    states against the files, the launches of both kernels, the outputs
+    against the CPU; the trainer's event file against its JSONL."""
+    from tfssd_torch.make_keras_drill import write_drill
+    from tfssd_torch.utils.checkpoint import OrbaxCheckpoints
+    from tfssd_torch.utils.port_weights import port_h5_into_variables
+    from tfssd_torch.utils.tfevents import read_records, read_scalars
+
+    if KERAS_DIR.exists():
+        shutil.rmtree(KERAS_DIR)
+    KERAS_DIR.mkdir(parents=True)
+    files = {"mbv2.h5": "mobilenet_v2", "mbv2.keras": "mobilenet_v2",
+             "vgg16.h5": "vgg16"}
+    t0 = time.perf_counter()
+    arrays = {name: write_drill(str(KERAS_DIR / name), backbone, SEED)
+              for name, backbone in files.items()}
+    print(f"port-h5: drill files written in {time.perf_counter() - t0:.2f} "
+          f"s: " + ", ".join(
+              f"{n} {os.path.getsize(KERAS_DIR / n) / 2**20:.2f} MiB"
+              for n in files))
+    import_s = {}
+    for name, backbone in files.items():
+        # the weight import layer: read the file, port it, graft it into a
+        # model on the card
+        _, model = predict.load_model(backbone, None, SEED, CARD,
+                                      fold_bn=False)
+        t0 = time.perf_counter()
+        port_h5_into_variables(model, backbone, str(KERAS_DIR / name))
+        torch.cuda.synchronize()
+        import_s[name] = time.perf_counter() - t0
+        del model
+    print("port-h5: read, port and graft onto the card: " + ", ".join(
+        f"{n} {t:.3f} s" for n, t in import_s.items()) + f" ({CARD_LINE})")
+    mb_trunk = _trunk_state("mobilenet_v2", arrays["mbv2.h5"])
+    ckpt = OrbaxCheckpoints(str(TRAINED_DIR))
+    tree = ckpt.restore_weights(ckpt.serving_step())
+    ckpt_state = variables_to_state_dict(
+        {k: tree[k] for k in ("params", "batch_stats")})
+    launches = {}
+
+    # predict --port-h5 over the committed checkpoint: .h5 and .keras
+    # unfolded, the .h5 folded
+    h5 = str(KERAS_DIR / "mbv2.h5")
+    base = ["--limit", str(PORT_H5_IMAGES), "--batch-size", str(PATH_BATCH)]
+    runs = {}
+    for label, path, fold in (("h5", h5, False),
+                              ("keras", str(KERAS_DIR / "mbv2.keras"), False),
+                              ("h5_fold", h5, True)):
+        t0 = time.perf_counter()
+        runs[label], launches[f"predict_{label}"] = _serve_counted(
+            base + ["--port-h5", path] + ([] if fold else ["--no-fold-bn"]))
+        run = runs[label]
+        print(f"port-h5: predict.main(--port-h5 {path}"
+              f"{'' if fold else ' --no-fold-bn'}): {sum(run.num_valid)} "
+              f"images in {len(run.results)} batches, nms_keep launches="
+              f"{launches[f'predict_{label}']}, {time.perf_counter() - t0:.2f}"
+              f" s, mAP {run.mean_ap!r} (heads trained for another trunk)")
+        if run.config.fold_bn != fold:
+            raise AssertionError(f"port-h5: {label}: fold_bn "
+                                 f"{run.config.fold_bn}")
+        if not fold:
+            _check_state(f"predict {label}", run.model.state_dict(),
+                         mb_trunk, ckpt_state)
+        _, cpu_model = predict.load_model(
+            "mobilenet_v2", str(TRAINED_DIR), device="cpu", fold_bn=fold,
+            port_h5=path)
+        check_outputs_on_cpu(f"mobilenet_v2 port-h5 {label}", run, cpu_model,
+                             2, PATH_BATCH)
+        anchors_t = torch.from_numpy(run.anchors).to(CARD)
+        for b in range(2, len(run.results)):
+            check_nms_on_cpu(f"mobilenet_v2 port-h5 {label} batch {b}", run,
+                             b, anchors_t)
+    same = all(torch.equal(a, b) for ra, rb in zip(runs["h5"].results,
+                                                    runs["keras"].results)
+               for a, b in zip(ra, rb))
+    print(f"port-h5: the .keras run's NMSResults bit-equal to the .h5 run's: "
+          f"{same}")
+    if not same:
+        raise AssertionError("port-h5: .keras and .h5 serve differently")
+    del runs
+
+    # trainer --port-h5: the trunk at step 0, Adam steps it; then --resume
+    train_argv = [
+        "--device", "cuda", "--batch-size", str(PORT_H5_TRAIN_BATCH),
+        "--steps-per-epoch", str(PORT_H5_TRAIN_STEPS), "--epochs", "1",
+        "--synthetic-size", "16", "--val-limit", "1", "--log-every", "1",
+        "--seed", str(SEED), "--port-h5", h5,
+        "--model-dir", str(KERAS_DIR / "model"),
+        "--log-dir", str(KERAS_DIR / "logs")]
+    snapshots = []
+    t0 = time.perf_counter()
+    run, launches["train"] = _port_h5_train(train_argv, snapshots)
+    seeded = init_random_weights(get_model(get_hyper_params("mobilenet_v2")),
+                                 SEED).state_dict()
+    _check_state("trainer at step 0", snapshots[0], mb_trunk, seeded)
+    want = run.steps_run + run.val_batches
+    losses = [m["loss"] for m in run.step_metrics]
+    params = dict(run.state.model.named_parameters())
+    held = {id(p) for g in run.state.optimizer.param_groups
+            for p in g["params"]}
+    moved = sum(not torch.equal(params[k].detach().cpu(), snapshots[0][k])
+                for k in params if k in mb_trunk)
+    trunk_params = sum(k in mb_trunk for k in params)
+    print(f"port-h5: trainer.main(--port-h5 {h5}): {run.steps_run} steps + "
+          f"{run.val_batches} validation batch, match_encode launches="
+          f"{launches['train']}, losses {losses}, {moved} of the "
+          f"{trunk_params} ported trunk parameters moved, Adam holds every "
+          f"parameter: {held == {id(p) for p in params.values()}}, "
+          f"{time.perf_counter() - t0:.2f} s")
+    if (launches["train"] != want or run.steps_run != PORT_H5_TRAIN_STEPS
+            or not all(math.isfinite(x) for x in losses)
+            or moved != trunk_params
+            or held != {id(p) for p in params.values()}):
+        raise AssertionError("port-h5: the trainer's run")
+    (log_dir,) = (KERAS_DIR / "logs" / "ssd_mobilenet_v2_torch").iterdir()
+    (events,) = log_dir.glob("events.out.tfevents.*.v2")
+    records = read_records(str(events))  # both CRC-32Cs of each checked
+    version, scalars = read_scalars(str(events))
+    with open(log_dir / "metrics.jsonl") as f:
+        lines = [json.loads(line) for line in f]
+    logged = [(k, line["step"], float(np.float32(v))) for line in lines
+              for k, v in line.items() if k not in ("step", "time")]
+    print(f"port-h5: {events.name}: {len(records)} records, CRC-32Cs "
+          f"checked, {version}; its {len(scalars)} scalars equal the "
+          f"{len(logged)} of metrics.jsonl at their steps: "
+          f"{scalars == logged}")
+    if version != "brain.Event:2" or scalars != logged or not logged:
+        raise AssertionError("port-h5: the event file and the JSONL differ")
+    final = {k: v.detach().cpu().clone()
+             for k, v in run.state.model.state_dict().items()}
+    del run
+    snapshots.clear()
+    resumed, launches["resume"] = _port_h5_train(train_argv + ["--resume"],
+                                                 snapshots)
+    equal = all(torch.equal(v.cpu(), final[k])
+                for k, v in resumed.state.model.state_dict().items())
+    print(f"port-h5: trainer.main(--resume --port-h5): grafted "
+          f"{len(snapshots)} time, resumed at step {resumed.state.step}, "
+          f"its weights bit-equal to the checkpoint's: {equal}")
+    if len(snapshots) != 1 or not equal or resumed.state.step != \
+            PORT_H5_TRAIN_STEPS or resumed.steps_run:
+        raise AssertionError("port-h5: --resume did not override the file")
+    del resumed
+
+    # SSD300-VGG16 over seeded weights
+    vgg = str(KERAS_DIR / "vgg16.h5")
+    run, launches["predict_vgg16"] = _serve_counted([
+        "--backbone", "vgg16", "--random-weights", "--seed", str(SEED),
+        "--port-h5", vgg, "--limit", str(PORT_H5_VGG_IMAGES),
+        "--batch-size", str(PORT_H5_VGG_BATCH)])
+    print(f"port-h5: predict.main(--backbone vgg16 --random-weights "
+          f"--port-h5 {vgg}): {len(run.results)} batches, nms_keep "
+          f"launches={launches['predict_vgg16']}")
+    _, cpu_seeded = predict.load_model("vgg16", None, SEED, "cpu")
+    _check_state("predict vgg16", run.model.state_dict(),
+                 _trunk_state("vgg16", arrays["vgg16.h5"]),
+                 cpu_seeded.state_dict())
+    _, cpu_model = predict.load_model("vgg16", None, SEED, "cpu",
+                                      port_h5=vgg)
+    check_outputs_on_cpu("vgg16 port-h5", run, cpu_model, 1,
+                         PORT_H5_VGG_BATCH)
+    shutil.rmtree(KERAS_DIR)
+    return dict(launches, import_s=import_s)
+
+
 # The data-parallel phase: trainer.main under a process group on the one
 # card; cases (a) two gloo ranks sharing cuda:0, (b) NCCL at world size 1.
 DP_DIR = ROOT / "build" / "chip_smoke_dp"
@@ -2683,6 +2935,11 @@ def main() -> int:
     resumed = resume_phase()
     print(f"resume: phase took {time.perf_counter() - t_phase:.1f} s")
 
+    section("4f. port-h5")
+    t_phase = time.perf_counter()
+    ported = port_h5_phase()
+    print(f"port-h5: phase took {time.perf_counter() - t_phase:.1f} s")
+
     section("5. timing")
     fits = time_serving(run, images[64], ((PATH_BATCH, 30), (64, 10)),
                         "mobilenet_v2")
@@ -2793,6 +3050,11 @@ def main() -> int:
     match_entry["launches_resume_uninterrupted"] = resumed["launches_whole"]
     for rank, n in enumerate(dp["gloo2"]):
         match_entry[f"launches_dp_gloo2_rank{rank}"] = n
+    match_entry["launches_port_h5_train"] = ported["train"]
+    match_entry["launches_port_h5_resume"] = ported["resume"]
+    for key in ("predict_h5", "predict_keras", "predict_h5_fold",
+                "predict_vgg16"):
+        entry[f"launches_port_h5_{key}"] = ported[key]
     print(json.dumps({"kernels": [entry, match_entry]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -1,8 +1,9 @@
 """Import and layout guard of the PyTorch/CUDA port.
 
 The machine with the card has PyTorch, numpy, Pillow and the CUDA toolkit,
-but no jax, flax, optax, orbax, tensorstore, zarr, zstandard, chex or
-tensorflow, and Triton is imported only inside a launching function. So
+but no jax, flax, optax, orbax, tensorstore, zarr, zstandard, chex,
+tensorflow, h5py, keras, tensorboard, google_crc32c or protobuf, and
+Triton is imported only inside a launching function. So
 every module of tfssd_torch and chip_smoke.py must import with all of those
 blocked and PIL too (it is imported only where an image is decoded or
 drawn), and their sources must not name the JAX package, jax, PyTorch's
@@ -20,7 +21,8 @@ import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
 BLOCKED = ("jax", "flax", "optax", "orbax", "chex", "PIL", "tensorflow",
-           "triton", "tensorstore", "zarr", "zstandard")
+           "triton", "tensorstore", "zarr", "zstandard", "h5py", "keras",
+           "tensorboard", "google_crc32c", "google.protobuf")
 
 _IMPORT_ALL = f"""
 import sys
@@ -41,10 +43,13 @@ for name in ("ops.matching", "ops.kernels.match_encode", "ops.losses",
              # the training CLI's slice: tracing, the VOC drill writer
              "utils.profiling", "make_voc_drill",
              # export and data parallelism
-             "utils.export", "parallel"):
+             "utils.export", "parallel",
+             # --port-h5 and TensorBoard scalars
+             "utils.hdf5", "utils.port_weights", "utils.tfevents",
+             "make_keras_drill"):
     assert "tfssd_torch." + name in sys.modules, name
-leaked = sorted(n for n in sys.modules
-                if n.split(".")[0] in {BLOCKED!r} and sys.modules[n] is not None)
+leaked = sorted(n for n in sys.modules if sys.modules[n] is not None
+                and any(n == b or n.startswith(b + ".") for b in {BLOCKED!r}))
 assert not leaked, leaked
 """
 

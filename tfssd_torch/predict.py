@@ -1,7 +1,6 @@
 """Serving entry point: weights -> (folded) SSD -> batched predict -> VOC mAP.
 
-Port of the repository's predictor.py, flag for flag (but --port-h5),
-run as
+Port of the repository's predictor.py, flag for flag, run as
 
     python -m tfssd_torch.predict [--device cpu]
     python -m tfssd_torch.predict --dataset voc --data-root VOC2007 \
@@ -12,6 +11,7 @@ run as
     python -m tfssd_torch.predict --random-weights --seed 0 ...
     python -m tfssd_torch.predict --weights ssd_mobilenet_v2_7680.npz ...
     python -m tfssd_torch.predict --export ssd.pt2 [--export-batch 8]
+    python -m tfssd_torch.predict --port-h5 mobilenet_v2.keras ...
     torchrun --nproc_per_node=N -m tfssd_torch.predict ...
 
 --backbone is a config name of get_hyper_params: mobilenet_v2 and vgg16
@@ -24,8 +24,13 @@ committed trained/ssd_mobilenet_v2/7680) is read without orbax
 (utils/checkpoint.py:OrbaxCheckpoints); where there is none the run stops
 before the model is built. --random-weights serves seeded random weights;
 --weights takes an .npz of the Flax variable tree with '/'-joined keys
-(utils/convert.py:flatten_tree). BatchNorm is folded into the convolutions
-unless --no-fold-bn.
+(utils/convert.py:flatten_tree). --port-h5 PATH then writes the conv trunk
+of a Keras model file (.h5 or .keras, as Keras's model.save writes them:
+keras.applications.MobileNetV2 for mobilenet_v2, VGG16 for the VGG16
+configs) into the backbone, read without Keras (utils/port_weights.py);
+with --port-h5 a missing checkpoint is not fatal, and the heads keep the
+seeded weights of --seed. BatchNorm is folded into the convolutions
+afterwards, unless --no-fold-bn.
 
 Data. --dataset synthetic (the default here; the JAX predictor's default
 is voc) serves SyntheticDataset(128, seed=10_000), the JAX predictor's
@@ -96,6 +101,7 @@ from tfssd_torch.utils.fold_bn import fold_for_serving
 from tfssd_torch.utils.io import (get_jax_model_path, handle_args,
                                   parse_data_root)
 from tfssd_torch.utils.metrics import StepTimer
+from tfssd_torch.utils.port_weights import port_h5_into_variables
 
 # The evaluation split the JAX predictor serves for --dataset synthetic.
 SYNTHETIC_EVAL_SIZE = 128
@@ -134,11 +140,14 @@ def read_weights(weights: Union[str, Mapping[str, Any]],
 
 def load_model(backbone: str = "mobilenet_v2", weights: Weights = None,
                seed: int = 0, device="cuda", compute_dtype: str = "float32",
-               fold_bn: bool = True) -> Tuple[SSDConfig, SSD]:
+               fold_bn: bool = True, port_h5: Optional[str] = None
+               ) -> Tuple[SSDConfig, SSD]:
     """(config, model) ready to serve: weights as read_weights reads them
-    (folded or not), or seeded random weights where None; BatchNorm folded
-    where `fold_bn` (VGG16 has none); eval mode, on `device`, computing in
-    `compute_dtype` (the config's field; the weights stay float32)."""
+    (folded or not), or seeded random weights where None; the trunk of the
+    Keras model file `port_h5` written over them where given; BatchNorm
+    folded where `fold_bn` (VGG16 has none); eval mode, on `device`,
+    computing in `compute_dtype` (the config's field; the weights stay
+    float32)."""
     dev = resolve_device(device)
     cfg = get_hyper_params(backbone, compute_dtype=compute_dtype)
     if weights is not None:
@@ -147,6 +156,9 @@ def load_model(backbone: str = "mobilenet_v2", weights: Weights = None,
         model = load_variables(get_model(cfg), tree)
     else:
         model = init_random_weights(get_model(cfg), seed)
+    if port_h5:
+        port_h5_into_variables(model, cfg.backbone, port_h5)
+        print(f"ported trunk weights from {port_h5}")
     model = model.to(dev).eval()
     return fold_for_serving(cfg, model) if fold_bn else (cfg, model)
 
@@ -383,6 +395,11 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--export-batch", type=int, default=None,
                    help="batch size baked into --export (default: "
                         "--batch-size)")
+    p.add_argument("--port-h5", default=None, metavar="PATH",
+                   help="Keras .h5 / .keras model whose trunk weights are "
+                        "ported into the backbone (the reference's "
+                        "migration path); the heads keep their seeded "
+                        "weights unless a checkpoint is also loaded")
     return p
 
 
@@ -440,9 +457,13 @@ def _predict(args, shard: parallel.Shard,
         weights = args.weights
     elif not args.random_weights:
         weights = get_jax_model_path(args.backbone, args.model_dir)
+        if (args.port_h5
+                and OrbaxCheckpoints(weights).serving_step() is None):
+            weights = None  # the trunk-only weights serve without one
     # --export keeps the BatchNorm graph unfolded, as the JAX predictor's
     cfg, model = load_model(args.backbone, weights, args.seed, dev,
-                            fold_bn=args.fold_bn and not args.export)
+                            fold_bn=args.fold_bn and not args.export,
+                            port_h5=args.port_h5)
     if args.export:
         from tfssd_torch.utils.export import export_predict
 

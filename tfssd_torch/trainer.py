@@ -5,7 +5,7 @@
         [--val-split val] [--device-cache {auto,on,off}] \\
         [--steps-per-call K] [--workers 8] [--prefetch-depth 4] \\
         [--profile] [--debug-nans] [--bf16] [--remat] [--resume] \\
-        [--device cpu]
+        [--port-h5 mobilenet_v2.keras] [--device cpu]
     torchrun --nproc_per_node=N -m tfssd_torch.trainer ...
 
 Each of the JAX package's configurations at full width, 21 labels and 64
@@ -53,7 +53,14 @@ range. --debug-nans reads each step's loss metrics and gradient norm and
 raises FloatingPointError at the first non-finite one (utils/
 profiling.py). --pallas and --handle-gpu are accepted so that the JAX
 trainer's command lines parse: on the card the match/encode kernel always
-runs. Not ported: --port-h5 (a Keras trunk file; ROADMAP.md).
+runs.
+
+--port-h5 PATH writes the conv trunk of a Keras model file (.h5 or .keras,
+as Keras's model.save writes them: keras.applications.MobileNetV2 for
+mobilenet_v2, VGG16 for the VGG16 configs; read without Keras,
+utils/port_weights.py) into the fresh model's parameters in place, before
+--resume and before the weights are broadcast to the ranks, so a checkpoint
+that --resume finds overrides it, as in the JAX trainer.
 
 --resume reads, in this order: the latest of the port's own checkpoints
 under <model-dir>/ssd_<backbone>_torch; where there is none, the latest
@@ -76,8 +83,9 @@ rank and gathers the rank's rows; the streamed feed decodes only the
 rank's rows), with the global batch's augmentation draws, BatchNorm
 statistics, loss and metrics, and gradients averaged over the ranks
 before Adam. The weights and Adam's state start from rank 0's. Only rank
-0 writes checkpoints, the sidecar, the metrics log and the --profile
-trace; every rank reads the checkpoint on --resume.
+0 writes checkpoints, the sidecar, the metrics log (metrics.jsonl and a
+TensorBoard event file, utils/metrics.py) and the --profile trace; every
+rank reads the checkpoint on --resume.
 """
 
 from __future__ import annotations
@@ -112,6 +120,7 @@ from tfssd_torch.utils.io import (get_jax_model_path, get_log_path,
                                   get_model_path, handle_args,
                                   parse_data_root)
 from tfssd_torch.utils.metrics import MetricsLogger
+from tfssd_torch.utils.port_weights import port_h5_into_variables
 
 # The JAX trainer's short names in its e2e metric.
 _SHORT = {"mobilenet_v2": "mbv2", "vgg16": "vgg16", "vgg16_512": "ssd512"}
@@ -199,6 +208,11 @@ def build_parser():
                         "under <model-dir>/ssd_<backbone>_torch, else the "
                         "JAX trainer's orbax checkpoint under "
                         "<model-dir>/ssd_<backbone> (read only)")
+    p.add_argument("--port-h5", default=None, metavar="PATH",
+                   help="initialise the conv trunk from a Keras .h5 / "
+                        ".keras model (the reference's weights, a "
+                        "keras.applications ImageNet trunk) and fine-tune "
+                        "from it; ignored when --resume finds a checkpoint")
     p.add_argument("--init-lr", type=float, default=1e-3)
     p.add_argument("--bf16", action="store_true",
                    help="bfloat16 conv trunk and heads (float32 parameters)")
@@ -417,6 +431,9 @@ def _train(args, shard: parallel.Shard, dev: torch.device) -> TrainRun:
     anchors = torch.from_numpy(generate_anchors(cfg)).to(dev)
     schedule = make_lr_schedule(steps_per_epoch, args.init_lr)
     state = create_train_state(cfg, args.seed, dev, schedule)
+    if args.port_h5:
+        port_h5_into_variables(state.model, cfg.backbone, args.port_h5)
+        print(f"ported trunk weights from {args.port_h5}; fine-tuning")
     step_kw = dict(augment=not args.no_augment, seed=args.seed + 1,
                    shard=shard)
     if device_cache:

@@ -33,7 +33,6 @@ standard library only. Its structure mirrors the JAX package's file names:
   parallel.py          data parallelism over torch.distributed (torchrun)
   profile_serving.py   where the serving time goes on the card
   profile_train.py     where a train step's time goes on the card
-  time_paths.py        serving img/s and train ms/step, to compare checkouts
 
 Public functions keep the JAX package's layouts (NHWC images, (B, N, 4)
 boxes); modules inside are NCHW. Entry points run on "cuda" unless the

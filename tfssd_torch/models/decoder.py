@@ -4,10 +4,15 @@ package's models/decoder.py; reference: models/decoder.py).
 Variance-scaled delta decode, clip to [0, 1], softmax with the background
 column dropped, combined per-class NMS, classes shifted +1 into the label
 space (1..L-1; padding rows are class 0, score 0).
+
+Under a torch profiler, predict records the span `predict` (id: its call
+count) and under it `preprocess`, `forward`, `decode` and combined NMS's
+`select`, `keep` and `merge` (utils/profiling.py).
 """
 
 from __future__ import annotations
 
+import itertools
 from typing import Callable, Tuple
 
 import numpy as np
@@ -16,6 +21,7 @@ import torch
 from tfssd_torch.config import SSDConfig
 from tfssd_torch.ops import boxes as box_ops
 from tfssd_torch.ops.nms import NMSResult, combined_nms
+from tfssd_torch.utils import profiling
 
 
 def preprocess_images(images: torch.Tensor) -> torch.Tensor:
@@ -42,19 +48,18 @@ def decode_predictions(anchors: torch.Tensor, pred_deltas: torch.Tensor,
                        pred_logits: torch.Tensor,
                        config: SSDConfig) -> NMSResult:
     """Decode + NMS, classes in the 1-based label space."""
-    boxes, scores = decode_boxes_and_scores(anchors, pred_deltas,
-                                            pred_logits, config)
-    res = combined_nms(
+    with profiling.span("decode"):
+        boxes, scores = decode_boxes_and_scores(anchors, pred_deltas,
+                                                pred_logits, config)
+    return combined_nms(
         boxes, scores,
         max_detections_per_class=config.max_detections_per_class,
         max_total_detections=config.max_total_detections,
         iou_threshold=config.nms_iou_threshold,
         score_threshold=config.nms_score_threshold,
         prefilter_anchors=config.nms_prefilter_anchors,
+        label_space=True,
     )
-    shifted = torch.where(res.classes >= 0, res.classes + 1,
-                          torch.zeros_like(res.classes))
-    return res._replace(classes=shifted)
 
 
 def make_predict_fn(model: torch.nn.Module, anchors: np.ndarray,
@@ -65,10 +70,15 @@ def make_predict_fn(model: torch.nn.Module, anchors: np.ndarray,
     NMS, without autograd."""
     device = next(model.parameters()).device
     anchors_t = torch.as_tensor(anchors, dtype=torch.float32, device=device)
+    calls = itertools.count()
 
     @torch.no_grad()
     def predict(images: torch.Tensor) -> NMSResult:
-        deltas, logits = model(preprocess_images(images))
-        return decode_predictions(anchors_t, deltas, logits, config)
+        with profiling.span("predict", next(calls)):
+            with profiling.span("preprocess"):
+                x = preprocess_images(images)
+            with profiling.span("forward"):
+                deltas, logits = model(x)
+            return decode_predictions(anchors_t, deltas, logits, config)
 
     return predict

@@ -11,8 +11,10 @@ defines them (reference: utils/bbox_utils.py:non_max_suppression):
   3. survivors of all classes merged by score into the top
      max_total_detections rows.
 
-Class ids are 0-based foreground indices, -1 on padding; the +1 shift to
-the label space lives in models/decoder.py.
+Class ids are 0-based foreground indices, -1 on padding; with
+label_space (models/decoder.py) they are shifted +1 into the label space,
+0 on padding. Under a torch profiler the stages record the spans `select`
+(0-1), `keep` (2) and `merge` (3, with the shift; utils/profiling.py).
 
 Tie order: the JAX package's top_k breaks ties toward the lower index and
 its merge relies on that. torch.topk promises no tie order, so every top-k
@@ -29,6 +31,7 @@ import torch
 from torch.utils import _pytree
 
 from tfssd_torch.ops.kernels.nms_keep import nms_keep
+from tfssd_torch.utils import profiling
 
 
 class NMSResult(NamedTuple):
@@ -129,17 +132,27 @@ def combined_nms(
     iou_threshold: float = 0.45,
     score_threshold: float = 0.0,
     prefilter_anchors: int = 0,
+    label_space: bool = False,
 ) -> NMSResult:
     """Batched combined per-class NMS; see the module docstring.
 
     prefilter_anchors = M > 0 keeps only the M anchors with the highest
     max-over-class score before the per-class stages (the serving default
-    is 512); 0 is exact."""
-    top_boxes, top_scores = select_candidates(
-        boxes, scores, max_detections_per_class, prefilter_anchors)
+    is 512); 0 is exact. label_space returns classes shifted +1 (1..C),
+    0 on padding."""
+    with profiling.span("select"):
+        top_boxes, top_scores = select_candidates(
+            boxes, scores, max_detections_per_class, prefilter_anchors)
     b, c, k = top_scores.shape
-    keep = nms_keep(top_boxes.reshape(b * c, k, 4).contiguous(),
-                    top_scores.reshape(b * c, k).contiguous(),
-                    iou_threshold, score_threshold).reshape(b, c, k)
-    return merge_detections(top_scores, keep, top_boxes,
-                            max_total_detections)
+    with profiling.span("keep"):
+        keep = nms_keep(top_boxes.reshape(b * c, k, 4).contiguous(),
+                        top_scores.reshape(b * c, k).contiguous(),
+                        iou_threshold, score_threshold).reshape(b, c, k)
+    with profiling.span("merge"):
+        res = merge_detections(top_scores, keep, top_boxes,
+                               max_total_detections)
+        if label_space:
+            res = res._replace(classes=torch.where(
+                res.classes >= 0, res.classes + 1,
+                torch.zeros_like(res.classes)))
+    return res

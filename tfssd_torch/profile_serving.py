@@ -137,7 +137,10 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     by_kind = defaultdict(float)
     kernels = []
     for evt in prof.key_averages():
-        if evt.device_type != torch.autograd.DeviceType.CUDA:
+        # a user annotation (predict's spans, record_function) spans
+        # kernels that are counted on their own
+        if (evt.device_type != torch.autograd.DeviceType.CUDA
+                or getattr(evt, "is_user_annotation", False)):
             continue
         us = evt.self_device_time_total / args.iters
         if us <= 0:

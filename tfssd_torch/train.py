@@ -34,7 +34,11 @@ call, as the JAX package's lax.scan does: the same computation as K
 single calls (the step count, and with it the rate and the augmentation
 draws, advances per step) with no read of a metric between them, their
 metrics stacked (K,). Each step runs inside a profiler range
-"train_step#<step>".
+"train_step#<step>". Under a torch profiler a step records the span
+`train_step` (id: the step) and under it `gather` (the cached forms),
+`augment` (1-3), `match`, `forward`, `loss`, `backward` (with the
+all-reduce and the gradient norm) and `adam`, and counts the real gts
+that enter the match in `match/real_gts` (utils/profiling.py).
 """
 
 from __future__ import annotations
@@ -140,6 +144,58 @@ def augment_seed(seed: int, step: int) -> int:
     return seed * 1_000_003 + step
 
 
+def _make_step_body(anchors: torch.Tensor, config: SSDConfig, augment: bool,
+                    seed: int, shard: parallel.Shard):
+    """(state, batch) -> metrics: one train step inside its step span."""
+    gen = torch.Generator(device=anchors.device) if augment else None
+
+    def one_step(state: TrainState, batch: Batch) -> Metrics:
+        model, opt = state.model, state.optimizer
+        with profiling.span("augment"):
+            images = batch["image"]
+            if images.dtype == torch.uint8:
+                images = images.float() / 255.0
+            gt_boxes, gt_labels = batch["boxes"], batch["labels"]
+            if augment:
+                gen.manual_seed(augment_seed(seed, state.step))
+                images, gt_boxes, gt_labels = augment_batch(
+                    gen, images, gt_boxes, gt_labels, shard.rank,
+                    shard.world)
+            images = images * 2.0 - 1.0
+        with profiling.span("match"):
+            if profiling.recording():
+                profiling.count("match/real_gts", (gt_labels > 0).sum())
+            actual_deltas, actual_labels = match_batch(
+                anchors, gt_boxes.contiguous(), gt_labels.contiguous(),
+                config)
+        model.train()
+        # one rank's step skips the walk over the modules (host time)
+        with (batch_stats_global(model, shard.world) if shard.world > 1
+              else contextlib.nullcontext()):
+            with profiling.span("forward"):
+                pred_deltas, pred_logits = model(images)
+            with profiling.span("loss"):
+                total, metrics = ssd_losses(actual_deltas, actual_labels,
+                                            pred_deltas, pred_logits,
+                                            config.neg_pos_ratio,
+                                            config.loc_loss_alpha)
+            with profiling.span("backward"):
+                opt.zero_grad(set_to_none=True)
+                total.backward()
+                parallel.all_reduce_grads(model, shard)
+                metrics = parallel.reduce_metrics(metrics, shard)
+                grads = [p.grad for p in model.parameters()
+                         if p.grad is not None]
+                metrics["grad_norm"] = torch.nn.utils.get_total_norm(grads)
+        if profiling.debug_nans_enabled():
+            profiling.check_finite(metrics, state.step)
+        with profiling.span("adam"):
+            apply_gradients(state)
+        return metrics
+
+    return one_step
+
+
 def make_train_step(anchors: torch.Tensor, config: SSDConfig,
                     augment: bool = True, seed: int = 0,
                     shard: parallel.Shard = parallel.SINGLE):
@@ -147,44 +203,11 @@ def make_train_step(anchors: torch.Tensor, config: SSDConfig,
     {'image' (B,S,S,3) uint8, 'boxes' (B,G,4) float32, 'labels' (B,G)
     int32} on the anchors' device: the rank's rows of the global batch
     under data parallelism."""
-    gen = torch.Generator(device=anchors.device) if augment else None
+    one_step = _make_step_body(anchors, config, augment, seed, shard)
 
     def train_step(state: TrainState, batch: Batch) -> Metrics:
         with profiling.step_annotation("train_step", state.step):
             return one_step(state, batch)
-
-    def one_step(state: TrainState, batch: Batch) -> Metrics:
-        model, opt = state.model, state.optimizer
-        images = batch["image"]
-        if images.dtype == torch.uint8:
-            images = images.float() / 255.0
-        gt_boxes, gt_labels = batch["boxes"], batch["labels"]
-        if augment:
-            gen.manual_seed(augment_seed(seed, state.step))
-            images, gt_boxes, gt_labels = augment_batch(
-                gen, images, gt_boxes, gt_labels, shard.rank, shard.world)
-        images = images * 2.0 - 1.0
-        actual_deltas, actual_labels = match_batch(
-            anchors, gt_boxes.contiguous(), gt_labels.contiguous(), config)
-        model.train()
-        # one rank's step skips the walk over the modules (host time)
-        with (batch_stats_global(model, shard.world) if shard.world > 1
-              else contextlib.nullcontext()):
-            pred_deltas, pred_logits = model(images)
-            total, metrics = ssd_losses(actual_deltas, actual_labels,
-                                        pred_deltas, pred_logits,
-                                        config.neg_pos_ratio,
-                                        config.loc_loss_alpha)
-            opt.zero_grad(set_to_none=True)
-            total.backward()
-        parallel.all_reduce_grads(model, shard)
-        metrics = parallel.reduce_metrics(metrics, shard)
-        grads = [p.grad for p in model.parameters() if p.grad is not None]
-        metrics["grad_norm"] = torch.nn.utils.get_total_norm(grads)
-        if profiling.debug_nans_enabled():
-            profiling.check_finite(metrics, state.step)
-        apply_gradients(state)
-        return metrics
 
     return train_step
 
@@ -230,11 +253,14 @@ def make_cached_train_step(anchors: torch.Tensor, config: SSDConfig,
     """(state, data, idx) -> metrics: the train step fed by gather_rows
     from a dataset staged on the device once; idx holds the global
     batch's rows, of which the rank gathers its own."""
-    base = make_train_step(anchors, config, augment, seed, shard)
+    one_step = _make_step_body(anchors, config, augment, seed, shard)
 
     def cached_step(state: TrainState, data: Batch,
                     idx: torch.Tensor) -> Metrics:
-        return base(state, gather_rows(data, idx[shard.rows(len(idx))]))
+        with profiling.step_annotation("train_step", state.step):
+            with profiling.span("gather"):
+                batch = gather_rows(data, idx[shard.rows(len(idx))])
+            return one_step(state, batch)
 
     return cached_step
 
@@ -245,13 +271,13 @@ def make_cached_multi_train_step(anchors: torch.Tensor, config: SSDConfig,
     """(state, data, idx (K, B)) -> metrics stacked (K,): K train steps in
     one call over device-resident data, each gathering its own rows (the
     rank's columns of idx)."""
-    base = make_train_step(anchors, config, augment, seed, shard)
+    cached_step = make_cached_train_step(anchors, config, augment, seed,
+                                         shard)
 
     def multi_step(state: TrainState, data: Batch,
                    idx: torch.Tensor) -> Metrics:
-        return stack_metrics([
-            base(state, gather_rows(data, row))
-            for row in parallel.superbatch_rows(idx, shard)])
+        return stack_metrics([cached_step(state, data, row)
+                              for row in idx])
 
     return multi_step
 

@@ -25,7 +25,8 @@ JAX artifact needs only its namedtuple's registration:
 The exported function takes one float32 (batch_size, S, S, 3) image batch
 already in [-1, 1] (models/decoder.py:preprocess_images) and returns the
 NMSResult with classes in the label space. `predict --export PATH`
-exposes it.
+exposes it. The export traces with no profiler active, so the artifact
+carries none of the program's spans (utils/profiling.py).
 """
 
 from __future__ import annotations

@@ -19,11 +19,14 @@ trainer's --profile and --debug-nans, on the CPU:
     profiler range (the shared clock); with no profiler nothing is
     recorded and no range opened; the flag is the profiler's own;
     `--profile` writes spans.json; the benchmark's span readers turn a
-    known store into per-request and per-step numbers;
+    known store into per-request and per-step numbers; the counter of
+    fc6's GEMM (conv/atrous_gemm) reads 1 in an SSD300-VGG16 predict and
+    0 in its train step and in a MobileNetV2 predict;
   * on the card (cuda): a predict's stages partition its device time, and
     `keep` holds the nms_keep kernel.
 """
 
+import functools
 import json
 import math
 from pathlib import Path
@@ -254,6 +257,36 @@ def test_a_cached_train_step_records_its_stages_and_real_gts(spans):
     real = int((labels > 0).sum())
     assert 0 < real
     assert profiling.span_summary()["counters"] == {"match/real_gts": real}
+
+
+@pytest.mark.parametrize("backbone,call,want", [
+    ("vgg16", "predict", 1), ("vgg16", "train_step", 0),
+    ("mobilenet_v2", "predict", 0)])
+def test_the_atrous_gemm_counter(spans, backbone, call, want):
+    # SSD300-VGG16 at 260 pixels, the smallest whose VALID extras reach
+    # 1x1: fc6 is its one dilated convolution
+    small = TINY if backbone == "mobilenet_v2" else dict(
+        TINY, img_size=260, feature_map_shapes=(33, 17, 9, 5, 3, 1))
+    cfg = get_hyper_params(backbone, **small)
+    images = torch.zeros((1, cfg.img_size, cfg.img_size, 3),
+                         dtype=torch.uint8)
+    if call == "train_step":
+        data = {"image": images,
+                "boxes": torch.tensor([[[0.1, 0.1, 0.6, 0.5]] * 4]),
+                "labels": torch.tensor([[1, 0, 0, 0]], dtype=torch.int32)}
+        state = create_train_state(cfg, 0, "cpu", make_lr_schedule(1))
+        step = make_cached_train_step(torch.from_numpy(generate_anchors(
+            cfg)), cfg, augment=False, seed=0)
+        run = functools.partial(step, state, data, torch.arange(1))
+    else:
+        model = init_random_weights(get_model(cfg), 0).eval()
+        run = functools.partial(make_predict_fn(
+            model, generate_anchors(cfg), cfg), images)
+    with _cpu_profile():
+        run()
+    summary = profiling.span_summary()
+    assert summary["spans"][call]["calls"] == 1
+    assert summary["counters"].get("conv/atrous_gemm", 0) == want
 
 
 def test_without_a_profiler_nothing_is_recorded_and_no_range_opened(

@@ -5,6 +5,10 @@ with the JAX package, on the CPU.
   pads (0, 1) with -inf; pool5's 3x3 stride 1), fc6's dilated SAME conv and
   the bias + ReLU extra block in its SAME stride-2 and VALID stride-1 forms,
   from seeded numpy weights and inputs: within 1e-5.
+- fc6 without autograd is a GEMM over its unfolded taps: within 1e-12 of
+  F.conv2d at dilation 6 in float64 on fc6's maps (19, 32) and on maps
+  narrower than its span (10, 1); with autograd recording, or in
+  bfloat16, it stays F.conv2d, gradient and all.
 - SSD512 whole, JAX's seeded init carried across, batch 1: each of the
   seven taps and (deltas, logits) within REL of that output's largest
   magnitude: without BatchNorm nothing holds the scales near 1 (the
@@ -142,6 +146,72 @@ def test_dilated_fc6_conv_matches(size):
     with torch.no_grad():
         got = _nhwc(tmod(_nchw(x)))
     np.testing.assert_allclose(got, want, atol=ATOL_BLOCK)
+
+
+@pytest.mark.parametrize("stride", [1, 2])
+@pytest.mark.parametrize("bias", [True, False], ids=["bias", "no_bias"])
+@pytest.mark.parametrize("batch", [1, 3])
+@pytest.mark.parametrize("size", [19, 32, 10, 1])
+def test_fc6_gemm_is_the_dilated_conv(size, batch, bias, stride):
+    # fc6's maps at SSD300 (19) and SSD512 (32), and 10 and 1, where the
+    # kernel's span (13) is wider than the map; fewer channels than fc6's
+    # 512 -> 1,024, which change only the length of each sum. fc6's stride
+    # is 1; stride 2 holds the helper's output size.
+    gen = torch.Generator().manual_seed(size * 10 + batch)
+    x = torch.randn(batch, 16, size, size, generator=gen, dtype=torch.float64)
+    w = torch.randn(24, 16, 3, 3, generator=gen, dtype=torch.float64) / 12
+    b = torch.randn(24, generator=gen, dtype=torch.float64) if bias else None
+    got = tlayers._atrous_gemm(x, w, b, (6, 6), (stride, stride), (6, 6))
+    want = torch.nn.functional.conv2d(x, w, b, stride, 6, 6)
+    out = -(-size // stride)
+    assert got.shape == want.shape == (batch, 24, out, out)
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-12)
+
+
+@pytest.mark.parametrize("route", ["records", "no_grad", "frozen",
+                                   "bfloat16"])
+def test_fc6_takes_the_gemm_only_where_autograd_records_nothing(
+        route, monkeypatch):
+    calls = []
+    gemm = tlayers._atrous_gemm
+
+    def spy(*args):
+        calls.append(args[0].shape)
+        return gemm(*args)
+
+    monkeypatch.setattr(tlayers, "_atrous_gemm", spy)
+    gen = torch.Generator().manual_seed(0)
+    x = torch.randn(2, 8, 19, 19, generator=gen, dtype=torch.float64)
+    if route == "bfloat16":
+        # cuDNN's tensor-core kernels beat the GEMM in bfloat16: F.conv2d
+        conv = tlayers.SameConv2d(8, 12, 3, dilation=6,
+                                  compute_dtype=torch.bfloat16)
+        xb = x.to(torch.bfloat16)
+        with torch.no_grad():
+            got = conv(x.float())
+            want = torch.nn.functional.conv2d(
+                xb, conv.weight.to(torch.bfloat16), None, 1, 6, 6
+            ) + conv.bias.to(torch.bfloat16)[:, None, None]
+        assert calls == [] and torch.equal(got, want)
+        return
+    conv = tlayers.SameConv2d(8, 12, 3, dilation=6).double()
+    if route == "frozen":
+        conv.requires_grad_(False)
+    x.requires_grad_(route == "records")
+    with torch.set_grad_enabled(route != "no_grad"):
+        got = conv(x)
+    want = torch.nn.functional.conv2d(x, conv.weight, conv.bias, 1, 6, 6)
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-12)
+    if route != "records":
+        assert calls == [x.shape] and got.grad_fn is None
+        return
+    # cuDNN's route (F.conv2d) and its gradient, as a train step takes it
+    assert calls == [] and "Convolution" in type(got.grad_fn).__name__
+    g = torch.randn(got.shape, generator=gen, dtype=torch.float64)
+    grads = torch.autograd.grad(got, (x, conv.weight, conv.bias), g)
+    wants = torch.autograd.grad(want, (x, conv.weight, conv.bias), g)
+    for a, b in zip(grads, wants):
+        torch.testing.assert_close(a, b, rtol=0, atol=1e-12)
 
 
 @pytest.mark.parametrize("size,stride,padding", [

@@ -24,6 +24,14 @@ bfloat16)); BatchNorm normalises the conv's output in float32 with
 float32 statistics and casts back; activations, pools and the residual
 add run in bfloat16. `compute_dtype=None` computes in the parameters'
 dtype (float32, or float64 for a float64 model) with no casts.
+
+A dilated convolution (VGG16's fc6) computed in the parameters' dtype
+that autograd does not record (serving, export, evaluation) is one GEMM
+over its unfolded taps (_atrous_gemm); the profiler counter
+"conv/atrous_gemm" counts those calls. Where autograd records (every train
+step, remat included) it stays F.conv2d, whose backward cuDNN runs well,
+and so it does in bfloat16, where cuDNN's tensor-core kernels ran fc6
+1.3-8x faster than the GEMM at batch 8 to 256 (H100).
 """
 
 from __future__ import annotations
@@ -35,6 +43,8 @@ from typing import Callable, Iterator, Optional, Tuple
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from tfssd_torch.utils import profiling
 
 BN_EPSILON = 1e-3
 BN_MOMENTUM = 0.99  # Flax convention; SSDConfig.bn_momentum's default
@@ -70,6 +80,12 @@ class Conv2d(nn.Conv2d):
               ) -> torch.Tensor:
         dtype = self.compute_dtype
         if dtype is None:
+            if (self.dilation != (1, 1) and self.groups == 1
+                    and not (torch.is_grad_enabled() and (
+                        x.requires_grad or self.weight.requires_grad))):
+                profiling.count("conv/atrous_gemm", 1)
+                return _atrous_gemm(x, self.weight, self.bias, padding,
+                                    self.stride, self.dilation)
             return F.conv2d(x, self.weight, self.bias, self.stride, padding,
                             self.dilation, self.groups)
         x = x.to(dtype)
@@ -91,6 +107,34 @@ class Conv2d(nn.Conv2d):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self._conv(x, self.padding)
+
+
+def _atrous_gemm(x: torch.Tensor, weight: torch.Tensor,
+                 bias: Optional[torch.Tensor], padding: Tuple[int, int],
+                 stride: Tuple[int, int], dilation: Tuple[int, int]
+                 ) -> torch.Tensor:
+    """F.conv2d(x, weight, bias, stride, padding, dilation) for groups 1,
+    as one batched GEMM over the unfolded taps (im2col), the bias added by
+    the GEMM: (O, C*kh*kw) @ (B, C*kh*kw, L) is (B, O, L), already NCHW.
+    Conv2d._conv takes it for a dilated kernel in float32 (float64) when
+    autograd records nothing. On an H100, cuDNN runs fc6 (3x3 at dilation
+    6, 512 -> 1,024) on the trunk's channels-last activations at batch 16
+    (32x32) and 64 (19x19) with a direct kernel at under 1 TFLOP/s; this
+    form ran every fc6 shape measured at 34-46 TFLOP/s. The sums are the
+    convolution's, in another order."""
+    b, _, h, w = x.shape
+    o, _, kh, kw = weight.shape
+    oh = (h + 2 * padding[0] - (kh - 1) * dilation[0] - 1) // stride[0] + 1
+    ow = (w + 2 * padding[1] - (kw - 1) * dilation[1] - 1) // stride[1] + 1
+    cols = F.unfold(x, (kh, kw), dilation=dilation, padding=padding,
+                    stride=stride)
+    taps = weight.reshape(o, -1).expand(b, -1, -1)
+    if bias is None:
+        y = torch.bmm(taps, cols)
+    else:
+        y = torch.baddbmm(bias[:, None].expand(b, -1, cols.shape[-1]), taps,
+                          cols)
+    return y.view(b, o, oh, ow)
 
 
 class SameConv2d(Conv2d):

@@ -21,7 +21,9 @@ trainer's --profile and --debug-nans, on the CPU:
     `--profile` writes spans.json; the benchmark's span readers turn a
     known store into per-request and per-step numbers; the counter of
     fc6's GEMM (conv/atrous_gemm) reads 1 in an SSD300-VGG16 predict and
-    0 in its train step and in a MobileNetV2 predict;
+    0 in its train step and in a MobileNetV2 predict; a RetinaNet predict
+    at a small preset records `trunk`, `fpn` and `head` under `forward`,
+    its selection's stages, and the counter `select/candidates`;
   * on the card (cuda): a predict's stages partition its device time, and
     `keep` holds the nms_keep kernel.
 """
@@ -287,6 +289,32 @@ def test_the_atrous_gemm_counter(spans, backbone, call, want):
     summary = profiling.span_summary()
     assert summary["spans"][call]["calls"] == 1
     assert summary["counters"].get("conv/atrous_gemm", 0) == want
+
+
+def test_a_retinanet_predict_records_its_model_stages_and_candidates(
+        spans):
+    # 128 pixels, 32 groups, narrow widths, 7 classes; each level's top 40
+    cfg = get_hyper_params(
+        "retinanet_rx50fpn_800", img_size=128,
+        feature_map_shapes=(16, 8, 4, 2, 1), stem_channels=8,
+        stage_widths=(32, 32, 64, 64), stage_channels=(16, 32, 32, 64),
+        fpn_channels=16, num_classes=7, topk_candidates=40)
+    model = init_random_weights(get_model(cfg), 0).eval()
+    predict = make_predict_fn(model, generate_anchors(cfg), cfg)
+    x = torch.randint(0, 256, (2, 128, 128, 3), dtype=torch.uint8)
+    with _cpu_profile():
+        res = predict(x)
+    records = profiling.span_records()
+    assert [r["name"] for r in records] == [
+        "preprocess", "trunk", "fpn", "head", "forward", "select", "decode",
+        "keep", "merge", "predict"]
+    parents = {r["name"]: r["parent"] for r in records}
+    assert {parents[k] for k in ("trunk", "fpn", "head")} == {"forward"}
+    assert parents["forward"] == parents["keep"] == "predict"
+    # 5 levels x 40 pairs an image, those above 0.05
+    cands = profiling.span_summary()["counters"]["select/candidates"]
+    assert 0 < cands <= 2 * 5 * 40
+    assert int(res.valid.sum()) <= cands
 
 
 def test_without_a_profiler_nothing_is_recorded_and_no_range_opened(

@@ -6,6 +6,10 @@ both packages build identical anchors and thresholds. Fields that only the
 TPU build reads (nms_impl, use_pallas, remat, compute_dtype) are kept so a
 config round-trips between the two packages unchanged.
 
+RetinaNetConfig states the fourth configuration, RetinaNet with a
+ResNeXt50-32x4d FPN trunk (get_hyper_params("retinanet_rx50fpn_800")),
+which the JAX package does not have: models/retinanet.py.
+
 Anchor-count bookkeeping: every cell of feature map k carries
 ``len(aspect_ratios[k]) + 1`` prior boxes — one per aspect ratio at scale
 s_k plus the extra ar=1 box at scale sqrt(s_k * s_{k+1}) from the SSD paper
@@ -17,7 +21,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Optional, Tuple
+from typing import Optional, Tuple, Union
 
 
 @dataclasses.dataclass(frozen=True)
@@ -144,6 +148,75 @@ class SSDConfig:
         return self
 
 
+@dataclasses.dataclass(frozen=True)
+class RetinaNetConfig:
+    """Static hyperparameters of RetinaNet (Lin et al., arXiv:1708.02002)
+    with a ResNeXt trunk (arXiv:1611.05431) and an FPN (arXiv:1612.03144),
+    as torchvision's retinanet_resnet50_fpn (v1) defines them and MLPerf
+    Inference runs them (models/retinanet.py has the equations)."""
+
+    backbone: str
+    img_size: int
+    # sides of P3-P7
+    feature_map_shapes: Tuple[int, ...]
+    # torchvision's AnchorGenerator: pixel sizes per level, ratios h / w
+    # (ratio-major); base boxes round([-w/2, -h/2, w/2, h/2]), shifted by
+    # multiples of img_size // side
+    anchor_sizes: Tuple[Tuple[int, ...], ...]
+    anchor_ratios: Tuple[float, ...] = (0.5, 1.0, 2.0)
+    # sigmoid classes, no background column
+    num_classes: int = 264
+    stem_channels: int = 64
+    groups: int = 32
+    stage_blocks: Tuple[int, ...] = (3, 4, 6, 3)
+    stage_widths: Tuple[int, ...] = (128, 256, 512, 1024)
+    stage_channels: Tuple[int, ...] = (256, 512, 1024, 2048)
+    fpn_channels: int = 256
+    head_convs: int = 4
+    # torchvision's ImageNet normalisation of images in [0, 1]
+    image_mean: Tuple[float, float, float] = (0.485, 0.456, 0.406)
+    image_std: Tuple[float, float, float] = (0.229, 0.224, 0.225)
+    bn_eps: float = 1e-5
+    # BoxCoder: deltas (dx, dy, dw, dh) over these weights, dw and dh
+    # clamped above at box_clamp
+    box_weights: Tuple[float, float, float, float] = (1.0, 1.0, 1.0, 1.0)
+    box_clamp: float = math.log(1000.0 / 16)
+    # per image and level: pairs scoring above score_threshold, their top
+    # topk_candidates; class-wise NMS; the top max_total_detections
+    score_threshold: float = 0.05
+    topk_candidates: int = 1000
+    nms_iou_threshold: float = 0.5
+    max_total_detections: int = 300
+    compute_dtype: str = "float32"
+    # built as biased convs with BatchNorm folded in (utils/fold_bn.py)
+    fold_bn: bool = False
+
+    @property
+    def anchors_per_cell(self) -> int:
+        return len(self.anchor_ratios) * len(self.anchor_sizes[0])
+
+    @property
+    def anchors_per_map(self) -> Tuple[int, ...]:
+        return tuple(s * s * self.anchors_per_cell
+                     for s in self.feature_map_shapes)
+
+    @property
+    def total_anchors(self) -> int:
+        return sum(self.anchors_per_map)
+
+    @property
+    def strides(self) -> Tuple[int, ...]:
+        return tuple(self.img_size // s for s in self.feature_map_shapes)
+
+    def validate(self) -> "RetinaNetConfig":
+        assert len(self.anchor_sizes) == len(self.feature_map_shapes)
+        assert len({len(s) for s in self.anchor_sizes}) == 1
+        assert all(w % self.groups == 0 for w in self.stage_widths)
+        assert self.compute_dtype == "float32", (
+            "RetinaNet is built in float32 only")
+        return self
+
+
 _AR_4 = (1.0, 2.0, 0.5)                 # -> 4 boxes/cell (with extra ar=1)
 _AR_6 = (1.0, 2.0, 0.5, 3.0, 1.0 / 3.0)  # -> 6 boxes/cell
 
@@ -178,10 +251,20 @@ _BACKBONE_CONFIGS = {
         aspect_ratios=(_AR_4, _AR_6, _AR_6, _AR_6, _AR_6, _AR_4, _AR_4),
         scales=(0.07, 0.15, 0.2875, 0.425, 0.5625, 0.7, 0.8375, 1.0),
     ),
+    # RetinaNet-ResNeXt50-32x4d-FPN at 800x800, 264 classes (MLPerf
+    # Inference's detector): 120,087 anchors on P3-P7 (100/50/25/13/7).
+    "retinanet_rx50fpn_800": RetinaNetConfig(
+        backbone="resnext50_32x4d_fpn",
+        img_size=800,
+        feature_map_shapes=(100, 50, 25, 13, 7),
+        anchor_sizes=tuple((x, int(x * 2 ** (1 / 3)), int(x * 2 ** (2 / 3)))
+                           for x in (32, 64, 128, 256, 512)),
+    ),
 }
 
 
-def get_hyper_params(backbone: str, **kwargs) -> SSDConfig:
+def get_hyper_params(backbone: str, **kwargs
+                     ) -> Union[SSDConfig, RetinaNetConfig]:
     """Mirror of reference `train_utils.get_hyper_params(backbone, **kwargs)`.
 
     Returns the per-backbone config with any keyword overrides applied.

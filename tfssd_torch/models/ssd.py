@@ -22,16 +22,17 @@ from __future__ import annotations
 
 import contextlib
 import math
-from typing import List, Tuple
+from typing import List, Tuple, Union
 
 import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from tfssd_torch.config import SSDConfig
+from tfssd_torch.config import RetinaNetConfig, SSDConfig
 from tfssd_torch.models.head import MultiboxHead
 from tfssd_torch.models.layers import L2Norm, batch_stats_frozen
 from tfssd_torch.models.mobilenet_v2 import MobileNetV2Backbone
+from tfssd_torch.models.retinanet import RetinaNet
 from tfssd_torch.models.vgg16 import (TAP_CHANNELS_300, TAP_CHANNELS_512,
                                       VGG16Backbone)
 
@@ -84,8 +85,12 @@ class SSD(nn.Module):
         return self.head(self.features(images))
 
 
-def get_model(config: SSDConfig) -> SSD:
-    """Mirror of the reference `get_model(hyper_params)`."""
+def get_model(config: Union[SSDConfig, RetinaNetConfig]
+              ) -> Union[SSD, RetinaNet]:
+    """Mirror of the reference `get_model(hyper_params)`; a RetinaNetConfig
+    builds models/retinanet.py's RetinaNet."""
+    if isinstance(config, RetinaNetConfig):
+        return RetinaNet(config)
     return SSD(config)
 
 

@@ -6,6 +6,10 @@ so both packages get bit-equal anchors. The tensor functions keep the same
 operation order as their JAX counterparts, so they agree to the last few
 ulps in float32. All boxes are normalized corners [ymin, xmin, ymax, xmax];
 center form is [cy, cx, h, w].
+
+RetinaNet's anchors and decode (retinanet_anchors, decode_retinanet) follow
+torchvision's AnchorGenerator and BoxCoder instead, in the same normalized
+y-first layout; the JAX package has no counterpart.
 """
 
 from __future__ import annotations
@@ -16,7 +20,7 @@ from typing import Sequence, Tuple
 import numpy as np
 import torch
 
-from tfssd_torch.config import SSDConfig
+from tfssd_torch.config import RetinaNetConfig, SSDConfig
 
 EPS = 1e-8
 
@@ -37,7 +41,10 @@ def generate_base_anchors(
 
 def generate_anchors(config: SSDConfig) -> np.ndarray:
     """All prior boxes for a config, (total_anchors, 4) float32 corners,
-    centers at (i + 0.5) / f_k, clipped to [0, 1]."""
+    centers at (i + 0.5) / f_k, clipped to [0, 1]; a RetinaNetConfig's are
+    retinanet_anchors'."""
+    if isinstance(config, RetinaNetConfig):
+        return retinanet_anchors(config)
     scales = config.map_scales
     out = []
     for k, fm in enumerate(config.feature_map_shapes):
@@ -59,6 +66,64 @@ def generate_anchors(config: SSDConfig) -> np.ndarray:
         raise ValueError(f"{anchors.shape[0]} anchors, config expects "
                          f"{config.total_anchors}")
     return np.clip(anchors, 0.0, 1.0).astype(np.float32)
+
+
+def retinanet_base_anchors(sizes: Sequence[int],
+                           ratios: Sequence[float]) -> np.ndarray:
+    """torchvision's cell anchors of one level, (A, 4) float32 pixel
+    [x0, y0, x1, y1], ratio-major: h = size * sqrt(r), w = size / sqrt(r),
+    round([-w, -h, w, h] / 2) (half to even), computed in float32."""
+    scales = np.asarray(sizes, np.float32)
+    h_ratios = np.sqrt(np.asarray(ratios, np.float32))
+    w_ratios = np.float32(1) / h_ratios
+    ws = (w_ratios[:, None] * scales[None, :]).reshape(-1)
+    hs = (h_ratios[:, None] * scales[None, :]).reshape(-1)
+    return np.round(np.stack([-ws, -hs, ws, hs], axis=1) / np.float32(2))
+
+
+def retinanet_anchors(config: RetinaNetConfig) -> np.ndarray:
+    """RetinaNet's anchors, (total_anchors, 4) float32 corners normalized
+    by the image's side, [ymin, xmin, ymax, xmax], not clipped: per level
+    the base anchors shifted by (j * stride, i * stride), stride = img_size
+    // side, location-major, anchor next (torchvision's grid_anchors)."""
+    out = []
+    for fm, stride, sizes in zip(config.feature_map_shapes, config.strides,
+                                 config.anchor_sizes):
+        base = retinanet_base_anchors(sizes, config.anchor_ratios)
+        shift = np.arange(fm, dtype=np.float64) * stride
+        sy, sx = np.meshgrid(shift, shift, indexing="ij")
+        shifts = np.stack([sx, sy, sx, sy], axis=-1).reshape(-1, 1, 4)
+        xyxy = (shifts + base[None].astype(np.float64)).reshape(-1, 4)
+        out.append(xyxy[:, [1, 0, 3, 2]] / config.img_size)
+    anchors = np.concatenate(out).astype(np.float32)
+    if anchors.shape[0] != config.total_anchors:
+        raise ValueError(f"{anchors.shape[0]} anchors, config expects "
+                         f"{config.total_anchors}")
+    return anchors
+
+
+def decode_retinanet(anchors: torch.Tensor, deltas: torch.Tensor,
+                     config: RetinaNetConfig) -> torch.Tensor:
+    """torchvision's BoxCoder.decode_single on normalized y-first anchors:
+    deltas (dx, dy, dw, dh) over box_weights, dw and dh clamped above at
+    box_clamp, then the boxes clipped to the image ([0, 1]); corner boxes
+    [ymin, xmin, ymax, xmax]."""
+    h = anchors[..., 2] - anchors[..., 0]
+    w = anchors[..., 3] - anchors[..., 1]
+    cy = anchors[..., 0] + 0.5 * h
+    cx = anchors[..., 1] + 0.5 * w
+    wx, wy, ww, wh = config.box_weights
+    dx = deltas[..., 0] / wx
+    dy = deltas[..., 1] / wy
+    dw = torch.clamp(deltas[..., 2] / ww, max=config.box_clamp)
+    dh = torch.clamp(deltas[..., 3] / wh, max=config.box_clamp)
+    pcx = dx * w + cx
+    pcy = dy * h + cy
+    pw = torch.exp(dw) * w
+    ph = torch.exp(dh) * h
+    boxes = torch.stack([pcy - 0.5 * ph, pcx - 0.5 * pw, pcy + 0.5 * ph,
+                         pcx + 0.5 * pw], dim=-1)
+    return clip_boxes(boxes)
 
 
 def to_centers(boxes: torch.Tensor) -> torch.Tensor:

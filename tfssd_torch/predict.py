@@ -147,7 +147,8 @@ def load_model(backbone: str = "mobilenet_v2", weights: Weights = None,
     Keras model file `port_h5` written over them where given; BatchNorm
     folded where `fold_bn` (VGG16 has none); eval mode, on `device`,
     computing in `compute_dtype` (the config's field; the weights stay
-    float32)."""
+    float32). `backbone` is any get_hyper_params key; a RetinaNetConfig's
+    builds models/retinanet.py's RetinaNet."""
     dev = resolve_device(device)
     cfg = get_hyper_params(backbone, compute_dtype=compute_dtype)
     if weights is not None:

@@ -37,6 +37,29 @@ Phases, in order; any failure ends the run with a non-zero exit:
               printed; match/encode's inputs do not depend on the compute
               dtype, so the batches above are the bfloat16 train paths'
               too.
+  2b. classwise keep — tfssd::classwise_keep (RetinaNet's class-wise
+              keep) against its plain version on the card, bit for bit:
+              the candidates of one request of retina800-serve-b8 (the
+              benchmark's configuration file and seeded weights, 8
+              synthetic 800x800 scenes: B = 8, T = 5,000, C = 264) and
+              random candidates of that shape, each under every split of
+              tfssd_torch/ops/kernels/classwise_keep_cases.py (one class
+              holding all 5,000, a candidate a class, three classes,
+              equal scores, scores at the threshold, a split an image),
+              with all 264 classes and without the last; kept, rows
+              walked and the largest class printed. The same on
+              nms_keep_cases.py's crafted cases (IoUs at the threshold and
+              one ulp either side, degenerate boxes, thresholds 0 and
+              -0.5), 32 instances each laid out as 2 images of 16 in three
+              classes, in one class and an instance a class. classwise_nms's
+              NMSResult on the card equal to the CPU path's on the same
+              candidates; classwise_nms run under
+              torch.cuda.set_sync_debug_mode("error") (nothing read back,
+              no tensor made from the host); a whole RetinaNet predict
+              launches classwise_keep once and nms_keep never. Timed, as
+              in phase 5, on the request's split and the one-class split
+              of both: ms per call through the op, device us per launch,
+              host us per call, the plain version's ms, the bound.
   3. path   — serving: `python -m tfssd_torch.predict --random-weights`
               (its main(), device-cached) serves 32
               synthetic images at batch 8 through SSD300-MobileNetV2 at
@@ -287,17 +310,19 @@ Phases, in order; any failure ends the run with a non-zero exit:
      sizes and the live and artifact img/s; nms_keep's on the port-h5
      phase's serving runs as launches_port_h5_{predict_h5,predict_keras,
      predict_h5_fold,predict_vgg16} and match_encode's on its trainer runs
-     as launches_port_h5_{train,resume}), then the one-line JSON result,
-     last.
+     as launches_port_h5_{train,resume}; classwise_keep's entry with its
+     launches in phase 2b's predict and its timing as
+     <key>_{request,random}_{as_given,one_class}), then the one-line JSON
+     result, last.
 
 It exits non-zero without a result when no CUDA device is available, and
 in a directory that holds this script without the tfssd_torch package
 (or without trained/ssd_mobilenet_v2, or without a zstd decoder). It runs
 from the checkout's root and writes nothing outside build/. The whole run
-takes ~390-445 s on an NVIDIA H100 80GB HBM3 at 700 W (PERF.md §6): phase
-4b ~68 s, 4c ~43-54 s, 4d ~42-51 s with its two process groups started
-together, 4f ~13 s (429.4 s in all with it); phase 4b's 300-pixel drill
-tree was halved to make room for 4d's float64 runs.
+takes ~390-480 s on an NVIDIA H100 80GB HBM3 at 700 W (PERF.md §6): phase
+2b ~25 s (477.0 s in all with it), 4b ~68 s, 4c ~43-54 s, 4d ~42-51 s
+with its two process groups started together, 4f ~13 s; phase 4b's
+300-pixel drill tree was halved to make room for 4d's float64 runs.
 """
 
 from __future__ import annotations
@@ -325,11 +350,15 @@ from tfssd_torch.evaluate import detection_agreement
 from tfssd_torch.make_voc_drill import make_drill
 from tfssd_torch.models.decoder import (decode_boxes_and_scores,
                                         decode_predictions, make_predict_fn,
-                                        preprocess_images)
+                                        normalize_images, preprocess_images,
+                                        retinanet_candidates)
 from tfssd_torch.models.ssd import get_model, init_random_weights
 from tfssd_torch.ops import matching, nms
 from tfssd_torch.ops.boxes import generate_anchors
-from tfssd_torch.ops.kernels import build, match_encode, nms_keep
+from tfssd_torch.ops.kernels import (build, classwise_keep, match_encode,
+                                     nms_keep)
+from tfssd_torch.ops.kernels.classwise_keep_cases import (random_candidates,
+                                                          split_cases)
 from tfssd_torch.ops.kernels.match_encode_cases import (match_cases,
                                                        random_gts)
 from tfssd_torch.ops.kernels.nms_keep_cases import keep_cases
@@ -371,7 +400,7 @@ TRAIN_STEPS = 3
 # ~40x (SSD300-VGG16) and ~110x (SSD512) a MobileNetV2 image.
 PARITY_BATCH = {"mobilenet_v2": 8, "vgg16": 2, "vgg16_512": 1}
 SEED = 0
-KERNELS = ("nms_keep", "match_encode")
+KERNELS = ("nms_keep", "match_encode", "classwise_keep")
 BF16 = "bfloat16"
 # The JAX benchmark's serving headline batch (MobileNetV2, bfloat16).
 HEADLINE_BATCH = 256
@@ -616,6 +645,179 @@ def eval_images(cfg, count: int) -> np.ndarray:
                                seed=predict.SYNTHETIC_EVAL_SEED)
     return np.stack([dataset.example(i % len(dataset))["image"]
                      for i in range(count)])
+
+
+# The class-wise keep's phase: RetinaNet as the benchmark's cell
+# retina800-serve-b8 serves it (its configuration file, the benchmark's
+# seeded weights, batch 8 of 800x800 synthetic scenes), plus random
+# candidates of the same shape, each under every split of
+# ops/kernels/classwise_keep_cases.py.
+RETINA_CONFIG = ROOT / "portbench" / "configs" / "retinanet-rx50fpn-800.json"
+RETINA_BATCH = 8
+# The splits whose keep is timed: the served request's, and one class that
+# holds all T candidates (the deepest walk).
+CLASSWISE_TIMED = ("as_given", "one_class")
+
+
+def retina_request(device):
+    """(config, predict, images, (boxes, scores, classes)) of one request of
+    retina800-serve-b8: the candidates entering classwise_nms."""
+    from portbench import data, harness
+    from portbench.reference import retinanet as retina_ref
+
+    cfg = json.loads(RETINA_CONFIG.read_text())
+    tree = harness.numpy_tree(retina_ref.seeded_weights(cfg, SEED, device))
+    rcfg, model = predict.load_model(cfg["port_backbone"], tree, 0, device,
+                                     fold_bn=cfg["fold_bn"])
+    anchors = generate_anchors(rcfg)
+    images = torch.from_numpy(data.synthetic(
+        RETINA_BATCH, rcfg.img_size, SEED)["image"]).to(device)
+    mean, std = (torch.tensor(v, dtype=torch.float32, device=device)
+                 for v in (rcfg.image_mean, rcfg.image_std))
+    with torch.no_grad():
+        deltas, logits = model(normalize_images(images, mean, std))
+        cands = retinanet_candidates(
+            torch.as_tensor(anchors, dtype=torch.float32, device=device),
+            deltas, logits, rcfg)
+    return rcfg, make_predict_fn(model, anchors, rcfg), images, cands
+
+
+def classwise_bound(counts: torch.Tensor, t: int):
+    """(bound_ms, bound_by) of one classwise_keep call: boxes, scores,
+    counts and starts read once, the keep bytes written once; greedy NMS
+    needs at most one IoU for each pair of candidates of one class."""
+    b, c = counts.shape
+    bytes_moved = b * t * (16 + 4 + 1) + 2 * b * c * 8
+    n = counts.double()
+    ops = float((n * (n - 1) / 2).sum()) * OPS_PER_IOU
+    t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / F32_FLOP_PER_S * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def time_classwise(args, label: str) -> dict:
+    """classwise_keep and its plain version on one set of inputs: ms per
+    call through the op, device us per launch (graph replay), host us per
+    call through the op, bound."""
+    def call():
+        return classwise_keep.classwise_keep(*args)
+
+    ms = time_ms(call, 50)
+    dev_us = graph_us(call, per_graph=5, replays=10)
+    h_us = host_us(call, calls=50)
+    plain = time_ms(lambda: classwise_keep.classwise_keep_reference(*args),
+                    2, warmup=1)
+    bound, bound_by = classwise_bound(args[2], args[1].shape[1])
+    print(f"timing: classwise_keep {label}: kernel {ms:.5f} ms/call through "
+          f"the op, device {dev_us:.2f} us per launch (graph replay), host "
+          f"{h_us:.2f} us per call, plain {plain:.3f} ms/call, bound "
+          f"{bound:.6f} ms ({bound_by}; {CARD_LINE})")
+    return dict(ms=ms, device_us=dev_us, host_us=h_us, plain_ms=plain,
+                bound_ms=bound, bound_by=bound_by)
+
+
+def classwise_keep_phase(device=CARD) -> dict:
+    """The class-wise keep kernel against its plain version on the card,
+    bit for bit, on every split of a served RetinaNet request's candidates
+    and of random ones (B = 8, T = 5,000, C = 264), each also without its
+    last class; the NMSResult of classwise_nms on the card against the CPU
+    path on the same candidates; classwise_nms under the sync debug mode
+    set to error (no read-back, no host-made tensor); one launch and no
+    nms_keep launch a whole predict; the kernel timed on the request's and
+    the one-class split."""
+    rcfg, predict_fn, images, cands = retina_request(device)
+    c = rcfg.num_classes
+    thr = (rcfg.nms_iou_threshold, rcfg.score_threshold)
+    b, t = cands[1].shape
+    bases = {"request": cands, "random": tuple(
+        x.to(device) for x in random_candidates(b, t, c, SEED))}
+    timed = {}
+    for base, inputs in bases.items():
+        for name, boxes, scores, classes in split_cases(*inputs, c, thr[1]):
+            sb, ss, _, counts, starts = nms.class_order(boxes, scores,
+                                                        classes, c, thr[1])
+            for classes_given in (c - 1, c):
+                args = (sb, ss, counts[:, :classes_given],
+                        starts[:, :classes_given], *thr)
+                got = classwise_keep.classwise_keep(*args)
+                torch.cuda.synchronize()
+                want = classwise_keep.classwise_keep_reference(*args)
+                if not torch.equal(got, want):
+                    raise AssertionError(
+                        f"classwise_keep differs from its plain version on "
+                        f"{base} {name} ({classes_given} classes): "
+                        f"{int((got != want).sum())} of {got.numel()}")
+            cls_counts = counts[:, :c]
+            walked = int(torch.div(cls_counts + classwise_keep.ROW - 1,
+                                   classwise_keep.ROW,
+                                   rounding_mode="floor").sum())
+            print(f"kernel: classwise_keep {base} {name}: bit-equal to the "
+                  f"plain version (B={b} T={t} C={c}; also without the "
+                  f"last class), kept {int(got.sum())} of "
+                  f"{int(cls_counts.sum())} valid, rows walked {walked}, "
+                  f"largest class {int(cls_counts.max())}, nonempty "
+                  f"classes {int((cls_counts > 0).sum())}")
+            if name in CLASSWISE_TIMED:
+                timed[f"{base}_{name}"] = time_classwise(
+                    (sb, ss, cls_counts, starts[:, :c], *thr),
+                    f"{base} {name} B={b} T={t} C={c}")
+    # nms_keep's crafted IoU edges (thresholds at, and one ulp either side
+    # of, the IoU many pairs share; zero-area boxes; thresholds 0 and
+    # -0.5): 32 instances of each case as 2 images of 16, their candidates
+    # in three classes, in one, and an instance a class
+    layouts = 0
+    for case in keep_cases(instances=64, seed=1):
+        k = case.boxes.shape[1]
+        boxes = torch.from_numpy(case.boxes[:32]).to(device).reshape(
+            2, 16 * k, 4)
+        scores = torch.from_numpy(case.scores[:32]).to(device).reshape(
+            2, 16 * k)
+        inst = torch.arange(16 * k, device=device).expand(2, -1) // k
+        for classes in (inst % 3, torch.zeros_like(inst), inst):
+            sb, ss, _, counts, starts = nms.class_order(
+                boxes, scores, classes, 16, case.score_threshold)
+            args = (sb, ss, counts[:, :16], starts[:, :16],
+                    case.iou_threshold, case.score_threshold)
+            got = classwise_keep.classwise_keep(*args)
+            torch.cuda.synchronize()
+            if not torch.equal(
+                    got, classwise_keep.classwise_keep_reference(*args)):
+                raise AssertionError(f"classwise_keep differs from its plain "
+                                     f"version on crafted case {case.name}")
+            layouts += 1
+    print(f"kernel: classwise_keep bit-equal to the plain version on "
+          f"{layouts} layouts of nms_keep's crafted cases")
+    # the whole stage, on the card against the CPU path
+    res = nms.classwise_nms(*cands, c, *thr, rcfg.max_total_detections)
+    cpu = nms.classwise_nms(*(x.cpu() for x in cands), c, *thr,
+                            rcfg.max_total_detections)
+    for field, got, want in zip(res._fields, res, cpu):
+        if not torch.equal(got.cpu(), want):
+            raise AssertionError(f"classwise_nms {field} differs between the "
+                                 f"card and the CPU path")
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        nms.classwise_nms(*cands, c, *thr, rcfg.max_total_detections)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    classwise_keep.LAUNCHES = 0
+    keep_before = nms_keep.LAUNCHES
+    with torch.no_grad():
+        predict_fn(images)
+    torch.cuda.synchronize()
+    launches = classwise_keep.LAUNCHES
+    if launches != 1 or nms_keep.LAUNCHES != keep_before:
+        raise AssertionError(f"a RetinaNet predict launched classwise_keep "
+                             f"{launches} times and nms_keep "
+                             f"{nms_keep.LAUNCHES - keep_before} times")
+    print(f"kernel: classwise_nms on the card equals the CPU path "
+          f"(NMSResult, {int(res.valid.sum())} detections); no sync under "
+          f"the sync debug mode; a predict launches classwise_keep once, "
+          f"nms_keep never")
+    return {"launches": launches, "shape": f"B={b},T={t},C={c}",
+            **{f"{k}_{label}": v for label, row in timed.items()
+               for k, v in row.items()}}
 
 
 def check_keep_on_candidates(model, cfg, images: np.ndarray, label: str):
@@ -2886,6 +3088,11 @@ def main() -> int:
                        for name, batch in vgg_match.items()])
     check_match_cases(device)
 
+    section("2b. classwise keep")
+    t_phase = time.perf_counter()
+    classwise = classwise_keep_phase(device)
+    print(f"classwise keep: phase took {time.perf_counter() - t_phase:.1f} s")
+
     section("3. path")
     run, launches = serving_path("mobilenet_v2", PATH_IMAGES, 2, PATH_BATCH)
     vgg_runs, vgg_launches = {}, {}
@@ -3055,7 +3262,11 @@ def main() -> int:
     for key in ("predict_h5", "predict_keras", "predict_h5_fold",
                 "predict_vgg16"):
         entry[f"launches_port_h5_{key}"] = ported[key]
-    print(json.dumps({"kernels": [entry, match_entry]}))
+    classwise_entry = {
+        "name": "classwise_keep", "route": "cuda",
+        "source": "tfssd_torch/csrc/classwise_keep.cu", "replaces": None,
+        "bit_equal": True, "library_ms": None, **classwise}
+    print(json.dumps({"kernels": [entry, match_entry, classwise_entry]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}), flush=True)

@@ -312,9 +312,13 @@ def test_a_retinanet_predict_records_its_model_stages_and_candidates(
     assert {parents[k] for k in ("trunk", "fpn", "head")} == {"forward"}
     assert parents["forward"] == parents["keep"] == "predict"
     # 5 levels x 40 pairs an image, those above 0.05
-    cands = profiling.span_summary()["counters"]["select/candidates"]
+    counters = profiling.span_summary()["counters"]
+    cands = counters["select/candidates"]
     assert 0 < cands <= 2 * 5 * 40
     assert int(res.valid.sum()) <= cands
+    # the keep walks one row of up to 256 for each (image, class) that
+    # holds a candidate: at most 7 classes an image here
+    assert 0 < counters["keep/rows"] <= min(cands, 2 * 7)
 
 
 def test_without_a_profiler_nothing_is_recorded_and_no_range_opened(

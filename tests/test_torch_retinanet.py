@@ -16,8 +16,9 @@ BatchNorm statistics from synthetic scenes).
   widths, 7 classes) and at the published widths at 128 px; the folded
   float32 model within float32's rounding.
 - The selection and NMS: class-wise greedy NMS over candidates split
-  unevenly over the classes, one class holding 700 (three rows of
-  nms_keep's 256), against a greedy loop per class; the threshold at 0.05,
+  unevenly over the classes, one class holding 700 (three rows of 256),
+  and over every split of ops/kernels/classwise_keep_cases.py, against a
+  greedy loop per class; the threshold at 0.05,
   each level's top-k and the class-wise NMS of the decoder against the
   reference's postprocess on crafted logits, bit for bit; a whole predict
   at the small preset judged by the benchmark's comparison.
@@ -40,6 +41,9 @@ from tfssd_torch.models.decoder import (make_predict_fn, normalize_images,
                                         retinanet_detections)
 from tfssd_torch.models.ssd import get_model
 from tfssd_torch.ops.boxes import generate_anchors, iou_matrix
+from tfssd_torch.ops.kernels.classwise_keep_cases import (NAMES as CASE_NAMES,
+                                                          random_candidates,
+                                                          split_cases)
 from tfssd_torch.ops.nms import classwise_nms
 from tfssd_torch.utils.convert import load_variables
 from tfssd_torch.utils.fold_bn import fold_for_serving
@@ -185,11 +189,11 @@ def _greedy_per_class(boxes, scores, classes, thr, score_thr):
     return set(kept)
 
 
-def test_classwise_nms_keeps_what_greedy_nms_per_class_keeps():
+def _uneven_candidates():
+    """1,500 candidates: class 0 holds 700 (rows 0-2 of 256), class 1 300,
+    the rest spread over 40 classes; a tenth score at or below 0.05."""
     gen = torch.Generator().manual_seed(11)
     t = 1500
-    # class 0 holds 700 candidates (rows 0-2 of 256), class 1 300, the
-    # rest spread over 40 classes; a tenth score at or below 0.05
     classes = torch.cat([torch.zeros(700), torch.ones(300),
                          torch.randint(2, 42, (500,), generator=gen)
                          ]).long()[torch.randperm(t, generator=gen)]
@@ -198,6 +202,40 @@ def test_classwise_nms_keeps_what_greedy_nms_per_class_keeps():
     centre = torch.rand(t, 2, generator=gen) * 0.5 + 0.25
     size = torch.rand(t, 2, generator=gen) * 0.1 + 0.05
     boxes = torch.cat([centre - size / 2, centre + size / 2], dim=1)
+    return boxes, scores, classes
+
+
+def _rows(boxes, scores, classes):
+    """(score, class, box) of each row, sorted: a keep compared as a
+    multiset, whatever order equal scores took."""
+    return sorted(zip(scores.tolist(), classes.tolist(),
+                      map(tuple, boxes.tolist())))
+
+
+@pytest.mark.parametrize("split", ("uneven",) + CASE_NAMES)
+def test_classwise_nms_keeps_what_greedy_nms_per_class_keeps(split):
+    """The uneven split through the top 300, then every split of
+    ops/kernels/classwise_keep_cases.py (three images of 1,500 candidates
+    over 42 classes; one class alone walks 6 rows, the last of 220) with
+    every kept candidate in the output."""
+    if split != "uneven":
+        base = random_candidates(3, 1500, 42, 12)
+        _, boxes, scores, classes = dict(
+            (case[0], case) for case in split_cases(*base, 42, 0.05))[split]
+        res = classwise_nms(boxes, scores, classes, 42, 0.5, 0.05, 1500)
+        for i in range(3):
+            want = sorted(_greedy_per_class(boxes[i], scores[i], classes[i],
+                                            0.5, 0.05))
+            v = int(res.valid[i])
+            assert v == len(want) > 0
+            assert _rows(res.boxes[i, :v], res.scores[i, :v],
+                         res.classes[i, :v]) == _rows(
+                             boxes[i, want], scores[i, want],
+                             classes[i, want] + 1)
+            assert not res.classes[i, v:].any()
+        return
+    boxes, scores, classes = _uneven_candidates()
+    t = scores.shape[0]
     res = classwise_nms(boxes[None], scores[None], classes[None], 42, 0.5,
                         0.05, 300)
     want = _greedy_per_class(boxes, scores, classes, 0.5, 0.05)

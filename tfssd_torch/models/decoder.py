@@ -63,14 +63,15 @@ def decode_boxes_and_scores(
     return boxes, scores
 
 
-def retinanet_detections(anchors: torch.Tensor, deltas: torch.Tensor,
-                         logits: torch.Tensor,
-                         config: RetinaNetConfig) -> NMSResult:
-    """RetinaNet's selection, decode and class-wise NMS (module
-    docstring). The top-k of a level is taken over its logits, as sigmoid
-    keeps their order, and the threshold over the selected scores: the
-    pairs above it are a prefix of that order, so this is the top-k of
-    those pairs."""
+def retinanet_candidates(anchors: torch.Tensor, deltas: torch.Tensor,
+                         logits: torch.Tensor, config: RetinaNetConfig
+                         ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """RetinaNet's selection and decode (module docstring): (B, T, 4)
+    boxes, (B, T) scores and (B, T) 0-based classes of each image's T
+    candidates, T = the levels' top-k counts summed. The top-k of a level
+    is taken over its logits, as sigmoid keeps their order, and the
+    threshold (in classwise_nms) over the selected scores: the pairs above
+    it are a prefix of that order, so this is the top-k of those pairs."""
     b, _, c = logits.shape
     with profiling.span("select"):
         scores, pairs, at = [], [], 0
@@ -90,7 +91,17 @@ def retinanet_detections(anchors: torch.Tensor, deltas: torch.Tensor,
         boxes = box_ops.decode_retinanet(
             anchors[anchor], torch.gather(
                 deltas, 1, anchor[..., None].expand(-1, -1, 4)), config)
-    return classwise_nms(boxes, scores, pairs - anchor * c, c,
+    return boxes, scores, pairs - anchor * c
+
+
+def retinanet_detections(anchors: torch.Tensor, deltas: torch.Tensor,
+                         logits: torch.Tensor,
+                         config: RetinaNetConfig) -> NMSResult:
+    """RetinaNet's selection, decode and class-wise NMS (module
+    docstring)."""
+    boxes, scores, classes = retinanet_candidates(anchors, deltas, logits,
+                                                  config)
+    return classwise_nms(boxes, scores, classes, logits.shape[-1],
                          config.nms_iou_threshold, config.score_threshold,
                          config.max_total_detections)
 

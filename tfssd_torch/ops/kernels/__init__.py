@@ -10,7 +10,10 @@ utils/export.py.
                      (csrc/nms_keep.cu)
   match_encode.py  — tfssd::match_encode, gt matching + target encoding
                      (csrc/match_encode.cu)
+  classwise_keep.py — tfssd::classwise_keep, RetinaNet's class-wise exact
+                     greedy NMS keep (csrc/classwise_keep.cu; no TPU kernel)
   build.py         — nvcc into build/tfssd_torch/, loaded with ctypes
 """
 
-from tfssd_torch.ops.kernels import match_encode, nms_keep  # noqa: F401
+from tfssd_torch.ops.kernels import (  # noqa: F401
+    classwise_keep, match_encode, nms_keep)

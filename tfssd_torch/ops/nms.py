@@ -18,8 +18,8 @@ label_space (models/decoder.py) they are shifted +1 into the label space,
 
 classwise_nms is RetinaNet's stage after its own selection
 (models/decoder.py): class-wise greedy NMS over each image's candidates,
-however they fall over the classes, through the same nms_keep; then the
-top detections by score.
+however they fall over the classes, through tfssd::classwise_keep
+(ops/kernels/classwise_keep.py); then the top detections by score.
 
 Tie order: the JAX package's top_k breaks ties toward the lower index and
 its merge relies on that. torch.topk promises no tie order, so every top-k
@@ -35,8 +35,8 @@ from typing import NamedTuple, Tuple
 import torch
 from torch.utils import _pytree
 
-from tfssd_torch.ops.boxes import iou_matrix
-from tfssd_torch.ops.kernels.nms_keep import MAX_K, nms_keep
+from tfssd_torch.ops.kernels.classwise_keep import ROW, classwise_keep
+from tfssd_torch.ops.kernels.nms_keep import nms_keep
 from tfssd_torch.utils import profiling
 
 
@@ -164,6 +164,29 @@ def combined_nms(
     return res
 
 
+def class_order(boxes: torch.Tensor, scores: torch.Tensor,
+                classes: torch.Tensor, num_classes: int,
+                score_threshold: float):
+    """(B, T, 4) boxes, (B, T) scores and (B, T) classes in 0..C-1 ->
+    the candidates ordered class by class, by score within a class (ties
+    toward the lower index), a candidate scoring at or below
+    score_threshold moved to a last class C: boxes (B, T, 4), scores
+    (B, T) and classes (B, T) in that order, and each (image, class)'s
+    count and start of its segment, (B, C + 1) int64 (column C the
+    sink's). Device ops only: nothing is read back."""
+    b, t = scores.shape
+    valid = scores > score_threshold
+    by_score = top_indices(torch.where(valid, scores, float("-inf")), t)
+    cls = torch.gather(torch.where(valid, classes, num_classes), 1, by_score)
+    cls, by_class = torch.sort(cls, dim=1, stable=True)
+    order = torch.gather(by_score, 1, by_class)
+    counts = torch.zeros(b, num_classes + 1, dtype=torch.long,
+                         device=scores.device)
+    counts.scatter_add_(1, cls, torch.ones_like(cls))
+    return (_gather_rows(boxes, order), torch.gather(scores, 1, order), cls,
+            counts, counts.cumsum(1) - counts)
+
+
 def classwise_nms(boxes: torch.Tensor, scores: torch.Tensor,
                   classes: torch.Tensor, num_classes: int,
                   iou_threshold: float, score_threshold: float,
@@ -175,76 +198,33 @@ def classwise_nms(boxes: torch.Tensor, scores: torch.Tensor,
     0 on padding). Exact for any split of the T candidates over the
     classes, with the same static shapes for every request.
 
-    The candidates are ordered class by class, by score within a class
-    (ties toward the lower index), and cut into rows of K = min(MAX_K, T)
-    per class: row q of a class holds its candidates q*K .. q*K + K - 1.
-    Pass 0 runs every class's first row through nms_keep; pass q > 0 runs
-    the q-th rows of the T // (q*K) fullest classes (no more can have
-    one), after marking invalid each candidate that a kept one of its
-    class's earlier rows overlaps beyond the threshold. So each row's keep
-    is the greedy keep given every earlier decision of its class: greedy
-    NMS solved K candidates at a time, in ceil(T / K) passes. The spans
-    `keep` (the passes) and `merge` record under a profiler."""
-    b, t = scores.shape
-    c, dev = num_classes, scores.device
-    neg = torch.tensor(float("-inf"), dtype=scores.dtype, device=dev)
-    k = min(MAX_K, t)
+    The candidates are ordered class by class (class_order), then one
+    tfssd::classwise_keep call judges every class of every image: on the
+    card one kernel launch that walks each class's candidates in rows of
+    256 (ops/kernels/classwise_keep.py). Nothing in either stage reads a
+    value back or makes a tensor from the host, so the host enqueues the
+    whole stage behind the model without waiting. The spans `keep`
+    (ordering and keep) and `merge` record under a profiler, and with them
+    the counter `keep/rows`: the rows of up to 256 the walk takes, summed
+    over the (image, class) pairs."""
+    t = scores.shape[1]
     with profiling.span("keep"):
-        valid = scores > score_threshold
-        by_score = top_indices(torch.where(valid, scores, neg), t)
-        cls = torch.gather(torch.where(valid, classes, c), 1, by_score)
-        cls, by_class = torch.sort(cls, dim=1, stable=True)
-        order = torch.gather(by_score, 1, by_class)
-        # column t is a sink for the rows' empty slots
-        sb = torch.nn.functional.pad(_gather_rows(boxes, order),
-                                     (0, 0, 0, 1))
-        ss = torch.nn.functional.pad(torch.gather(scores, 1, order), (0, 1),
-                                     value=float("-inf"))
-        counts = torch.zeros(b, c + 1, dtype=torch.long, device=dev)
-        counts.scatter_add_(1, cls, torch.ones_like(cls))
-        starts = counts.cumsum(1) - counts
-        keep = torch.zeros(b, t + 1, dtype=torch.bool, device=dev)
-        slots = torch.arange(k, device=dev)
-        for q in range(-(-t // k)):
-            if q == 0:
-                rows = torch.arange(c, device=dev).expand(b, c)
-            else:
-                rows = torch.topk(counts[:, :c], min(c, t // (k * q)),
-                                  dim=1).indices
-            m = rows.shape[1]
-            n = torch.gather(counts, 1, rows)[..., None]
-            first = torch.gather(starts, 1, rows)[..., None]
-            pos = torch.where(q * k + slots < n, first + q * k + slots, t)
-            pos = pos.reshape(b, m * k)
-            row_boxes = _gather_rows(sb, pos).reshape(b, m, k, 4)
-            row_scores = torch.gather(ss, 1, pos).reshape(b, m, k)
-            if q:
-                # a row of a class with fewer candidates is all sink, and
-                # its earlier positions (another class's) change nothing
-                prior = torch.clamp_max(
-                    first + torch.arange(q * k, device=dev), t).reshape(
-                        b, m * q * k)
-                hit = (iou_matrix(
-                    row_boxes, _gather_rows(sb, prior).reshape(b, m, q * k,
-                                                               4))
-                    > iou_threshold) & torch.gather(keep, 1, prior).reshape(
-                        b, m, 1, q * k)
-                row_scores = torch.where(hit.any(dim=-1), neg, row_scores)
-            kept = nms_keep(row_boxes.reshape(b * m, k, 4).contiguous(),
-                            row_scores.reshape(b * m, k).contiguous(),
-                            iou_threshold, score_threshold)
-            keep.scatter_(1, pos, kept.reshape(b, m * k))
+        sb, ss, cls, counts, starts = class_order(
+            boxes, scores, classes, num_classes, score_threshold)
+        counts, starts = counts[:, :num_classes], starts[:, :num_classes]
+        if profiling.recording():
+            profiling.count("keep/rows", torch.div(
+                counts + (ROW - 1), ROW, rounding_mode="floor").sum())
+        keep = classwise_keep(sb, ss, counts, starts, iou_threshold,
+                              score_threshold)
     with profiling.span("merge"):
-        keep = keep[:, :t]
         total = min(max_total_detections, t)
-        key = torch.where(keep, ss[:, :t], neg)
-        sel = top_indices(key, total)
+        sel = top_indices(torch.where(keep, ss, float("-inf")), total)
         ok = torch.gather(keep, 1, sel)
-        zero = torch.zeros((), dtype=scores.dtype, device=dev)
-        out_scores = torch.where(ok, torch.gather(ss, 1, sel), zero)
+        out_scores = torch.where(ok, torch.gather(ss, 1, sel), 0.0)
         out_classes = torch.where(ok, torch.gather(cls, 1, sel) + 1,
-                                  torch.zeros_like(sel)).to(torch.int32)
-        out_boxes = torch.where(ok[..., None], _gather_rows(sb, sel), zero)
+                                  0).to(torch.int32)
+        out_boxes = torch.where(ok[..., None], _gather_rows(sb, sel), 0.0)
         pad = max_total_detections - total
         if pad:
             out_scores = torch.nn.functional.pad(out_scores, (0, pad))

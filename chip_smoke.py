@@ -56,10 +56,7 @@ Phases, in order; any failure ends the run with a non-zero exit:
               candidates; classwise_nms run under
               torch.cuda.set_sync_debug_mode("error") (nothing read back,
               no tensor made from the host); a whole RetinaNet predict
-              launches classwise_keep once and nms_keep never. Timed, as
-              in phase 5, on the request's split and the one-class split
-              of both: ms per call through the op, device us per launch,
-              host us per call, the plain version's ms, the bound.
+              launches classwise_keep once and nms_keep never.
   3. path   — serving: `python -m tfssd_torch.predict --random-weights`
               (its main(), device-cached) serves 32
               synthetic images at batch 8 through SSD300-MobileNetV2 at
@@ -118,10 +115,16 @@ Phases, in order; any failure ends the run with a non-zero exit:
               statistics (every count 1), the gradient within REMAT_GRAD
               of the plain step's (beside the plain step repeated), the
               peak device memory of each.
+              Fit, after the serving paths: one predict of device-resident
+              uint8 images a batch size (an out-of-memory error means it
+              does not fit): MobileNetV2 serves batches 8 and 64 in float32
+              and 8, 64 and 256 in bfloat16; each VGG16 config serves 8
+              and 64 (or 32 where 64 does not fit) in float32, and 8 and
+              64 in bfloat16.
   4. trained — the committed checkpoint trained/ssd_mobilenet_v2/7680,
               read without orbax (utils/checkpoint.py: OCDBT and zarr in
-              numpy, zstd through libzstd.so.1 by ctypes; the decoder and
-              the seconds printed), served by
+              numpy, zstd through libzstd.so.1 by ctypes; the decoder
+              printed), served by
               `predict.main(["--limit", "128", "--batch-size", "8"])` with
               every other flag at its default (mobilenet_v2, --model-dir
               trained, the card, BatchNorm folded, device-cached) on
@@ -147,10 +150,11 @@ Phases, in order; any failure ends the run with a non-zero exit:
               (the card's float32 outputs against that CPU path printed
               as the control), launches == batches. The
               keep kernel on the trained candidates of batches 8 and 64
-              (R = 160, 1,280): bit-equal, timed as in phase 5, with the
-              rows holding a valid candidate and the valid candidates per
-              row beside the seeded weights'. Serving img/s, device-resident
-              images, at batches 8, 64 and 256, and bfloat16 at 256.
+              (R = 160, 1,280): bit-equal, with the rows holding a valid
+              candidate and the valid candidates per row beside the seeded
+              weights'. The checkpoint serves one batch each of 8, 64 and
+              256 on the card, and of 256 in bfloat16 (an out-of-memory
+              error means it does not fit, which fails the phase).
   4b. voc   — the trainer CLI on VOC directories: drill trees written by
               tfssd_torch.make_voc_drill under build/ (128 trainval + 32
               test images at 300 for mobilenet_v2 and vgg16 and at 512
@@ -201,9 +205,10 @@ Phases, in order; any failure ends the run with a non-zero exit:
               against the eager `--no-fold-bn` run of those images through
               predict.main, and its first batch on the CPU against the
               port's CPU path; these artifacts (~100 MiB each) are deleted
-              after the phase. Then live against artifact img/s (the JAX
-              package's tools/export_bench.py cell: MobileNetV2 bfloat16,
-              seeded, unfolded, batch 256), in turns in this run.
+              after the phase. Last, MobileNetV2 in bfloat16 (seeded
+              weights, BatchNorm unfolded) exported at batch 256 and
+              loaded on the card serves one batch of images in [-1, 1]:
+              its NMSResult bit-equal to the live model's.
   4d. dp    — data-parallel training on the one card: trainer.main at
               full width (SSD300-MobileNetV2, 2,268 anchors), global batch
               32, 2 epochs x 3 steps, device cache, augmentation on, cuDNN
@@ -225,7 +230,7 @@ Phases, in order; any failure ends the run with a non-zero exit:
   4e. resume — the JAX trainer's committed checkpoint continued by the
               port: trained/ssd_mobilenet_v2/7680 read whole without orbax
               (OrbaxCheckpoints.restore_train_state: 735 arrays, 410 of
-              them optax Adam's state; the seconds and MiB printed),
+              them optax Adam's state; the MiB printed),
               restored into the port's TrainState on the card and on the
               CPU, the eval loss terms of a fixed synthetic batch within
               RESUME_EVAL_GATE of each other; the first train step from
@@ -271,35 +276,13 @@ Phases, in order; any failure ends the run with a non-zero exit:
               "--limit", "8", "--batch-size", "2"])`: conv1_1 .. conv5_3
               from the file, the rest seeded, a launch a batch, the first
               batch against the CPU.
-  5. timing — serving img/s at batch 8 and 64 (device-resident uint8
-              images -> NMSResult), for each VGG16 config at batch 8 and
-              the largest of 64 / 32 that fits; train ms/step, img/s and
-              peak device memory of each config at its training batch
-              (augmentation on, device-resident data); each kernel's and
-              its plain version's ms per call (nms_keep at R = 160 and
-              R = 1280 and on each VGG16 config's R = 160, match_encode at
-              B = 32, G = 64 and N = 2,268, 8,732 and 24,564, and on a
-              batch whose 64 rows are all real at N = 24,564), through
-              the op, beside its
-              bound (match_encode: the bytes against the real pairs'
-              operations, the padded pairs' figure of earlier runs beside
-              it); also the device us per launch (CUDA events around
-              replays of a CUDA graph of 20 wrapper calls: no host work
-              between launches) and the host us per call (host clock
-              around 200 back-to-back calls, launches included) through
-              the op and through the ctypes wrapper alone;
-              bfloat16 beside float32: serving img/s of each config at
-              batch 8 and 64 (MobileNetV2 also at 256, the JAX
-              benchmark's headline batch), train ms/step and peak memory
-              of each config at its training batch, and SSD512 with
-              remat; the card's name and power limit on every timing
-              line.
-  6. the whole run's seconds, the `kernels` JSON line (match_encode's
-     launches on each train path and each VGG16 config's train batch
+  5. the whole run's seconds, the `kernels` JSON line (each kernel's
+     source, the JAX kernel it replaces, its shape, its largest error
+     against its plain version and its launches on every path:
+     match_encode's on each train path and each VGG16 config's train batch
      among its keys; the launches of both kernels on the bfloat16 paths
      as launches_bf16_<config>; nms_keep's on the trained paths as
-     launches_trained_mobilenet_v2 and launches_trained_bf16_mobilenet_v2,
-     and its timing on the trained candidates as <key>_trained_R<R>;
+     launches_trained_mobilenet_v2 and launches_trained_bf16_mobilenet_v2;
      match_encode's on the VOC runs as
      launches_voc_<config>_{streamed,cached,spc2[,cached_spc2]} and on
      the data-parallel runs as launches_dp_nccl1 and
@@ -307,22 +290,21 @@ Phases, in order; any failure ends the run with a non-zero exit:
      launches_resume_{jax_checkpoint,own_checkpoint,uninterrupted};
      nms_keep's in the export phase's fresh process as
      launches_export_fresh_process[_<vgg config>], with the artifacts'
-     sizes and the live and artifact img/s; nms_keep's on the port-h5
-     phase's serving runs as launches_port_h5_{predict_h5,predict_keras,
-     predict_h5_fold,predict_vgg16} and match_encode's on its trainer runs
-     as launches_port_h5_{train,resume}; classwise_keep's entry with its
-     launches in phase 2b's predict and its timing as
-     <key>_{request,random}_{as_given,one_class}), then the one-line JSON
-     result, last.
+     sizes; nms_keep's on the port-h5 phase's serving runs as
+     launches_port_h5_{predict_h5,predict_keras,predict_h5_fold,
+     predict_vgg16} and match_encode's on its trainer runs as
+     launches_port_h5_{train,resume}; classwise_keep's entry with its
+     launches in phase 2b's predict), then the one-line JSON result, last.
+     Kernel time on the path is the benchmark's to read (portbench/), not
+     this script's.
 
 It exits non-zero without a result when no CUDA device is available, and
 in a directory that holds this script without the tfssd_torch package
 (or without trained/ssd_mobilenet_v2, or without a zstd decoder). It runs
 from the checkout's root and writes nothing outside build/. The whole run
-takes ~390-480 s on an NVIDIA H100 80GB HBM3 at 700 W (PERF.md §6): phase
-2b ~25 s (477.0 s in all with it), 4b ~68 s, 4c ~43-54 s, 4d ~42-51 s
-with its two process groups started together, 4f ~13 s; phase 4b's
-300-pixel drill tree was halved to make room for 4d's float64 runs.
+took 418.6 s on an NVIDIA H100 80GB HBM3 at 700 W (PERF.md §6);
+phase 4b's 300-pixel drill tree was halved to make room for 4d's float64
+runs.
 """
 
 from __future__ import annotations
@@ -359,33 +341,15 @@ from tfssd_torch.ops.kernels import (build, classwise_keep, match_encode,
                                      nms_keep)
 from tfssd_torch.ops.kernels.classwise_keep_cases import (random_candidates,
                                                           split_cases)
-from tfssd_torch.ops.kernels.match_encode_cases import (match_cases,
-                                                       random_gts)
+from tfssd_torch.ops.kernels.match_encode_cases import match_cases
 from tfssd_torch.ops.kernels.nms_keep_cases import keep_cases
-from tfssd_torch.profile_nms_keep import host_us
 from tfssd_torch.utils import profiling
 from tfssd_torch.utils.convert import flatten_tree, variables_to_state_dict
-from tfssd_torch.train import (create_train_state, make_cached_train_step,
-                               make_lr_schedule, make_train_step)
+from tfssd_torch.train import (create_train_state, make_lr_schedule,
+                               make_train_step)
 
 ROOT = Path(__file__).resolve().parent
 CARD = torch.device("cuda", 0)
-
-# H100 SXM peaks (NVIDIA data sheet; dense, at the 700 W power limit).
-HBM_BYTES_PER_S = 3.35e12
-F32_FLOP_PER_S = 67e12
-# Operations of one IoU and its comparison: 4 max/min, 2 subtractions,
-# 2 clamps, 1 multiply (intersection), 2 add/sub (union), 1 clamp, 1 divide,
-# 1 compare; areas and the scan are O(K) per instance and left out.
-OPS_PER_IOU = 15
-
-# Operations of one anchor-gt pair in match_encode: 4 max/min, 2
-# subtractions, 2 clamps, a multiply (intersection), an add and a
-# subtract (union), a clamp, a divide, the padding mask, the compare and
-# the argmax update; the encode is O(1) per anchor and left out. The
-# function needs them for the real gts (label > 0) only; the padded
-# pairs' count is the figure of runs before the bound was recounted.
-OPS_PER_MATCH = 16
 
 PATH_BATCH = 8
 PATH_IMAGES = 32
@@ -409,7 +373,8 @@ HEADLINE_BATCH = 256
 # MobileNetV2 (bfloat16) for its BatchNorm statistics.
 REMAT_CONFIGS = ("vgg16_512", "mobilenet_v2")
 # nvidia-smi's name and power limit of the card, set in main() and printed
-# beside every timing.
+# beside the readings that depend on the card (throughput, peak memory,
+# float32 drift).
 CARD_LINE = ""
 
 
@@ -444,48 +409,6 @@ def candidates(model, cfg, anchors_t, images: np.ndarray):
             top_scores.reshape(b * c, k).contiguous())
 
 
-def time_ms(fn, iters: int, warmup: int = 3) -> float:
-    """Mean ms per call of `fn` on the card (CUDA events around `iters`
-    back-to-back calls, after `warmup` calls)."""
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
-
-
-def graph_us(fn, per_graph: int = 20, replays: int = 20) -> float:
-    """Device us per call of `fn`: CUDA events around `replays` replays of
-    a CUDA graph that holds `per_graph` calls, so no host work sits between
-    the launches."""
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):
-        for _ in range(3):
-            fn()
-    torch.cuda.current_stream().wait_stream(side)
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        for _ in range(per_graph):
-            fn()
-    graph.replay()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(replays):
-        graph.replay()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) * 1e3 / (per_graph * replays)
-
-
 def check_keep_cases(device) -> None:
     """The keep kernel, through tfssd::nms_keep, against its plain version
     on the card, bit for bit, on every crafted case."""
@@ -503,36 +426,6 @@ def check_keep_cases(device) -> None:
                                  f"entries")
     print(f"kernel: nms_keep crafted cases bit-equal ({len(cases)} cases, "
           f"64 instances each): {', '.join(c.name for c in cases)}")
-
-
-def keep_bound(r: int, k: int):
-    """(bound_ms, bound_by) of one keep call: inputs read once, the keep
-    bytes written once; every pair i < j gets one IoU."""
-    bytes_moved = r * k * (16 + 4 + 1)
-    ops = r * (k * (k - 1) // 2) * OPS_PER_IOU
-    t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / F32_FLOP_PER_S * 1e3
-    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
-
-
-def match_bound(n: int, labels: torch.Tensor) -> dict:
-    """Bounds of one match_encode call on (B, G) `labels` and N anchors:
-    anchors and gts read once, deltas and labels written once, against
-    one IoU and compare for each pair of an anchor and a real gt (what
-    this batch needs); and the figure of earlier runs, which counts every
-    padded pair too."""
-    b, g = labels.shape
-    real = int((labels > 0).sum())
-    t_bytes = (n * 16 + b * g * (16 + 4) + b * n * (16 + 4)) \
-        / HBM_BYTES_PER_S * 1e3
-    t_real = n * real * OPS_PER_MATCH / F32_FLOP_PER_S * 1e3
-    t_padded = b * n * g * OPS_PER_MATCH / F32_FLOP_PER_S * 1e3
-    return dict(
-        bound_ms=max(t_bytes, t_real),
-        bound_by="operations" if t_real > t_bytes else "bytes",
-        bound_ms_padded=max(t_bytes, t_padded),
-        bound_by_padded="operations" if t_padded > t_bytes else "bytes",
-        real_gts=real)
 
 
 def check_match_cases(device) -> None:
@@ -563,18 +456,6 @@ def check_match_cases(device) -> None:
     print(f"kernel: match_encode crafted cases labels bit-equal, deltas "
           f"within 1e-5 ({len(cases)} cases, {TRAIN_BATCH} images each): "
           f"{', '.join(c.name for c in cases)}")
-
-
-def full_g_batch(cfg, device):
-    """A batch of 32 images whose 64 gt rows are all real (seeded boxes of
-    the synthetic data's sizes): the most pairs per anchor for the
-    match/encode kernel -> (anchors, gt_boxes, gt_labels)."""
-    g = cfg.max_gt_boxes
-    boxes, labels = random_gts(np.random.default_rng(SEED), TRAIN_BATCH, g,
-                               g)
-    anchors = torch.from_numpy(generate_anchors(cfg)).to(device)
-    return (anchors, torch.from_numpy(boxes).to(device),
-            torch.from_numpy(labels).to(device))
 
 
 def build_all() -> None:
@@ -654,9 +535,6 @@ def eval_images(cfg, count: int) -> np.ndarray:
 # ops/kernels/classwise_keep_cases.py.
 RETINA_CONFIG = ROOT / "portbench" / "configs" / "retinanet-rx50fpn-800.json"
 RETINA_BATCH = 8
-# The splits whose keep is timed: the served request's, and one class that
-# holds all T candidates (the deepest walk).
-CLASSWISE_TIMED = ("as_given", "one_class")
 
 
 def retina_request(device):
@@ -682,40 +560,6 @@ def retina_request(device):
     return rcfg, make_predict_fn(model, anchors, rcfg), images, cands
 
 
-def classwise_bound(counts: torch.Tensor, t: int):
-    """(bound_ms, bound_by) of one classwise_keep call: boxes, scores,
-    counts and starts read once, the keep bytes written once; greedy NMS
-    needs at most one IoU for each pair of candidates of one class."""
-    b, c = counts.shape
-    bytes_moved = b * t * (16 + 4 + 1) + 2 * b * c * 8
-    n = counts.double()
-    ops = float((n * (n - 1) / 2).sum()) * OPS_PER_IOU
-    t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / F32_FLOP_PER_S * 1e3
-    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
-
-
-def time_classwise(args, label: str) -> dict:
-    """classwise_keep and its plain version on one set of inputs: ms per
-    call through the op, device us per launch (graph replay), host us per
-    call through the op, bound."""
-    def call():
-        return classwise_keep.classwise_keep(*args)
-
-    ms = time_ms(call, 50)
-    dev_us = graph_us(call, per_graph=5, replays=10)
-    h_us = host_us(call, calls=50)
-    plain = time_ms(lambda: classwise_keep.classwise_keep_reference(*args),
-                    2, warmup=1)
-    bound, bound_by = classwise_bound(args[2], args[1].shape[1])
-    print(f"timing: classwise_keep {label}: kernel {ms:.5f} ms/call through "
-          f"the op, device {dev_us:.2f} us per launch (graph replay), host "
-          f"{h_us:.2f} us per call, plain {plain:.3f} ms/call, bound "
-          f"{bound:.6f} ms ({bound_by}; {CARD_LINE})")
-    return dict(ms=ms, device_us=dev_us, host_us=h_us, plain_ms=plain,
-                bound_ms=bound, bound_by=bound_by)
-
-
 def classwise_keep_phase(device=CARD) -> dict:
     """The class-wise keep kernel against its plain version on the card,
     bit for bit, on every split of a served RetinaNet request's candidates
@@ -723,15 +567,13 @@ def classwise_keep_phase(device=CARD) -> dict:
     last class; the NMSResult of classwise_nms on the card against the CPU
     path on the same candidates; classwise_nms under the sync debug mode
     set to error (no read-back, no host-made tensor); one launch and no
-    nms_keep launch a whole predict; the kernel timed on the request's and
-    the one-class split."""
+    nms_keep launch a whole predict."""
     rcfg, predict_fn, images, cands = retina_request(device)
     c = rcfg.num_classes
     thr = (rcfg.nms_iou_threshold, rcfg.score_threshold)
     b, t = cands[1].shape
     bases = {"request": cands, "random": tuple(
         x.to(device) for x in random_candidates(b, t, c, SEED))}
-    timed = {}
     for base, inputs in bases.items():
         for name, boxes, scores, classes in split_cases(*inputs, c, thr[1]):
             sb, ss, _, counts, starts = nms.class_order(boxes, scores,
@@ -757,10 +599,6 @@ def classwise_keep_phase(device=CARD) -> dict:
                   f"{int(cls_counts.sum())} valid, rows walked {walked}, "
                   f"largest class {int(cls_counts.max())}, nonempty "
                   f"classes {int((cls_counts > 0).sum())}")
-            if name in CLASSWISE_TIMED:
-                timed[f"{base}_{name}"] = time_classwise(
-                    (sb, ss, cls_counts, starts[:, :c], *thr),
-                    f"{base} {name} B={b} T={t} C={c}")
     # nms_keep's crafted IoU edges (thresholds at, and one ulp either side
     # of, the IoU many pairs share; zero-area boxes; thresholds 0 and
     # -0.5): 32 instances of each case as 2 images of 16, their candidates
@@ -815,16 +653,14 @@ def classwise_keep_phase(device=CARD) -> dict:
           f"(NMSResult, {int(res.valid.sum())} detections); no sync under "
           f"the sync debug mode; a predict launches classwise_keep once, "
           f"nms_keep never")
-    return {"launches": launches, "shape": f"B={b},T={t},C={c}",
-            **{f"{k}_{label}": v for label, row in timed.items()
-               for k, v in row.items()}}
+    return {"launches": launches, "shape": f"B={b},T={t},C={c}"}
 
 
 def check_keep_on_candidates(model, cfg, images: np.ndarray, label: str):
     """The keep kernel (tfssd::nms_keep) against its plain version on the
     serving path's
     candidates of `images`: bit-equal, with kept and suppressed entries.
-    Returns (boxes, scores, max abs error)."""
+    Returns (scores, max abs error)."""
     anchors_t = torch.from_numpy(generate_anchors(cfg)).to(CARD)
     boxes, scores = candidates(model, cfg, anchors_t, images)
     thr = (cfg.nms_iou_threshold, cfg.nms_score_threshold)
@@ -848,7 +684,7 @@ def check_keep_on_candidates(model, cfg, images: np.ndarray, label: str):
     if kept == 0 or suppressed == 0:
         raise AssertionError(f"the candidates ({label}) exercise no "
                              f"suppression")
-    return boxes, scores, err
+    return scores, err
 
 
 def serving_path(backbone: str, limit: int, checked: int, cpu_images: int):
@@ -1129,25 +965,23 @@ def _serve_counted(argv) -> tuple:
     return run, launches
 
 
-def trained_path(seeded_cands) -> dict:
+def trained_path(seeded_scores) -> dict:
     """The committed checkpoint on the card: read without orbax, served by
     predict.main at its defaults, held against the CPU and the JAX
     predictor's mAP; the streamed feed, --no-fold-bn and bfloat16 beside
-    it; the keep kernel on trained candidates; serving img/s."""
+    it; the keep kernel on trained candidates; the batches it serves."""
     from tfssd_torch.utils import zstd
     from tfssd_torch.utils.checkpoint import OrbaxCheckpoints
 
-    t0 = time.perf_counter()
     ckpt = OrbaxCheckpoints(str(TRAINED_DIR))
     step = ckpt.serving_step()
     if step is None:
         raise AssertionError(f"no checkpoint under {TRAINED_DIR}")
     tree = ckpt.restore_weights(step)
-    seconds = time.perf_counter() - t0
     leaves = list(flatten_tree(
         {k: tree[k] for k in ("params", "batch_stats")}).values())
     print(f"trained: {TRAINED_DIR}/{step} read without orbax through "
-          f"{zstd.describe()} in {seconds:.3f} s ({len(leaves)} arrays, "
+          f"{zstd.describe()} ({len(leaves)} arrays, "
           f"{sum(a.nbytes for a in leaves) / 2**20:.2f} MiB)")
 
     argv = ["--limit", str(TRAINED_IMAGES), "--batch-size", str(PATH_BATCH)]
@@ -1260,24 +1094,25 @@ def trained_path(seeded_cands) -> dict:
     check_nms_on_cpu("mobilenet_v2 trained bf16 batch 0", bf16_run, 0,
                      anchors_t)
 
-    thr = (run.config.nms_iou_threshold, run.config.nms_score_threshold)
-    keep_rows = {}
+    threshold = run.config.nms_score_threshold
     for bs in (PATH_BATCH, 64):
-        boxes, scores, _ = check_keep_on_candidates(
+        scores, _ = check_keep_on_candidates(
             run.model, run.config, eval_images(run.config, bs),
             "mobilenet_v2 trained")
         r = scores.shape[0]
         print(f"trained: candidates R={r}: "
-              f"{candidate_stats(scores, thr[1])}; seeded weights: "
-              f"{candidate_stats(seeded_cands[r][1], thr[1])}")
-        keep_rows[r] = time_keep(boxes, scores, thr, "mobilenet_v2 trained")
+              f"{candidate_stats(scores, threshold)}; seeded weights: "
+              f"{candidate_stats(seeded_scores[r], threshold)}")
     images = eval_images(run.config, HEADLINE_BATCH)
-    time_serving(run, images, ((PATH_BATCH, 30), (64, 10),
-                               (HEADLINE_BATCH, 5)), "mobilenet_v2 trained")
-    time_serving(bf16_run, images, ((HEADLINE_BATCH, 5),),
-                 "mobilenet_v2 trained bf16")
+    batches = (PATH_BATCH, 64, HEADLINE_BATCH)
+    fits = serves_at(run, images, batches, "mobilenet_v2 trained")
+    bf16_fits = serves_at(bf16_run, images, (HEADLINE_BATCH,),
+                          "mobilenet_v2 trained bf16")
+    if fits != list(batches) or bf16_fits != [HEADLINE_BATCH]:
+        raise AssertionError(f"trained: serves at batches {fits}, in "
+                             f"bfloat16 at {bf16_fits} only")
     return dict(launches=launches, launches_bf16=launches_bf16,
-                keep_rows=keep_rows, unfolded=unfolded_kept)
+                unfolded=unfolded_kept)
 
 
 # The VOC phase: the trainer CLI on drill trees (tfssd_torch.make_voc_drill)
@@ -1301,10 +1136,8 @@ def make_voc_drills() -> dict:
         out = ROOT / "build" / "chip_smoke_voc" / f"drill{size}"
         if out.exists():
             shutil.rmtree(out)
-        t0 = time.perf_counter()
         roots[size] = make_drill(str(out), train, test, size)
-        print(f"voc: drill tree of {train} + {test} images at {size} "
-              f"written in {time.perf_counter() - t0:.2f} s")
+        print(f"voc: drill tree of {train} + {test} images at {size} written")
     return roots
 
 
@@ -1505,7 +1338,6 @@ EXPORT_CPU_BATCHES = 1
 # (the same ATen graph and the same cuDNN kernels: bit-equal expected),
 # and on the CPU against the port's CPU path; boxes and scores, max |diff|
 EXPORT_ATOL = 1e-6
-EXPORT_TIMING_ITERS = 20
 EXPORT_CHILD_TIMEOUT_S = 600
 
 # The VGG16 configurations exported with seeded weights (the committed
@@ -1533,9 +1365,7 @@ for job in json.loads(sys.argv[1]):
     blob = open(job["path"], "rb").read()
     images = np.load(job["images"])
     batch = job["batch"]
-    t0 = time.perf_counter()
     serve = load_exported(blob, "cuda")
-    load_s = time.perf_counter() - t0
     kernels.nms_keep.LAUNCHES = 0
     card = []
     for b in range(0, len(images), batch):
@@ -1554,7 +1384,7 @@ for job in json.loads(sys.argv[1]):
              **{f"cpu_{f}": np.concatenate([r[i] for r in cpu])
                 for i, f in enumerate(fields)})
     reports.append({"launches": launches, "calls": len(card),
-                    "load_s": load_s, "result_type": type(res).__name__})
+                    "result_type": type(res).__name__})
 print(json.dumps({"jobs": reports, "model_modules": sorted(
     m for m in sys.modules if m.startswith("tfssd_torch.models"))}))
 """
@@ -1596,19 +1426,17 @@ def _check_nms_distance(d: dict, label: str) -> None:
                              f"{EXPORT_ATOL})")
 
 
-def _export(argv: list, path: Path) -> tuple:
-    """predict.main(["--export", path, ...argv]): (seconds, MiB)."""
-    t0 = time.perf_counter()
+def _export(argv: list, path: Path) -> float:
+    """predict.main(["--export", path, ...argv]): the artifact's MiB."""
     if predict.main(["--export", str(path)] + argv) is not None:
         raise AssertionError("predict --export served instead of exporting")
-    return time.perf_counter() - t0, path.stat().st_size / 2**20
+    return path.stat().st_size / 2**20
 
 
 def _serve_fresh(jobs: list) -> dict:
     """EXPORT_CHILD in a fresh process on `jobs`: its report, each job's
     (card, cpu) NMSResults added; the launches must equal the calls, no
     model module imported."""
-    t0 = time.perf_counter()
     proc = subprocess.run(
         [sys.executable, "-c", EXPORT_CHILD, json.dumps(jobs)],
         cwd=ROOT, capture_output=True, text=True,
@@ -1617,7 +1445,6 @@ def _serve_fresh(jobs: list) -> dict:
         raise AssertionError(f"export: the fresh process failed:\n"
                              f"{proc.stderr[-4000:]}")
     report = json.loads(proc.stdout.strip().splitlines()[-1])
-    report["seconds"] = time.perf_counter() - t0
     if report["model_modules"]:
         raise AssertionError(f"export: the fresh process imported "
                              f"{report['model_modules']}")
@@ -1651,8 +1478,8 @@ def export_phase(unfolded: dict) -> dict:
     SSD300-VGG16 and SSD512 with seeded weights, served by one fresh
     process on the card (nms_keep launched once per call) and on the CPU;
     held against the eager --no-fold-bn runs (phase 4's for the
-    checkpoint), the port's CPU path and TRAINED_MAP_JAX; then live
-    against artifact img/s, MobileNetV2 bfloat16 at batch 256."""
+    checkpoint), the port's CPU path and TRAINED_MAP_JAX; then MobileNetV2
+    bfloat16 at batch 256, artifact against the live model on the card."""
     EXPORT_DIR.mkdir(parents=True, exist_ok=True)
     exports = {}
     np.save(EXPORT_DIR / "mobilenet_v2.npy", unfolded["images"])
@@ -1678,20 +1505,17 @@ def export_phase(unfolded: dict) -> dict:
                      batch=batch, cpu_batches=1))
         del eager
     for name, e in exports.items():
-        e["export_s"], e["size_mib"] = _export(e["argv"],
-                                               Path(e["job"]["path"]))
+        e["size_mib"] = _export(e["argv"], Path(e["job"]["path"]))
     report = _serve_fresh([e["job"] for e in exports.values()])
-    print(f"export: fresh process ({report['seconds']:.1f} s; "
-          f"tfssd_torch.models modules imported "
-          f"{report['model_modules']})")
+    print(f"export: fresh process: tfssd_torch.models modules imported "
+          f"{report['model_modules']}")
     out = {}
     for (name, e), r in zip(exports.items(), report["jobs"]):
         job = e["job"]
         d_card = _nms_distance(r["card"], e["eager"])
         cli = ["--export", job["path"]] + e["argv"]
         print(f"export: {name}: predict.main({cli}) wrote "
-              f"{e['size_mib']:.2f} MiB in {e['export_s']:.1f} s; "
-              f"loaded in {r['load_s']:.2f} s, {r['calls']} calls of "
+              f"{e['size_mib']:.2f} MiB; {r['calls']} calls of "
               f"{job['batch']} on the card, nms_keep launches="
               f"{r['launches']}; against the eager --no-fold-bn run "
               f"({len(e['eager'].valid)} images): {d_card} (bit-equal: "
@@ -1705,7 +1529,7 @@ def export_phase(unfolded: dict) -> dict:
         _check_nms_distance(d_cpu, f"{name}: CPU against the port's CPU "
                                    f"path")
         out[name] = dict(launches=r["launches"], size_mib=e["size_mib"],
-                         export_s=e["export_s"], card=d_card, cpu=d_cpu)
+                         card=d_card, cpu=d_cpu)
         if name != "mobilenet_v2":
             os.remove(job["path"])
     card = report["jobs"][0]["card"]
@@ -1717,48 +1541,26 @@ def export_phase(unfolded: dict) -> dict:
     if gap > TRAINED_MAP_GATE:
         raise AssertionError(f"export: artifact mAP {artifact_map} is {gap} "
                              f"from {TRAINED_MAP_JAX}")
-    timing = time_export(EXPORT_DIR / "ssd_mobilenet_v2_bf16_b256.pt2")
-    return dict(out["mobilenet_v2"], mean_ap=artifact_map, vgg={
-        name: out[name] for name in EXPORT_VGG}, **timing)
-
-
-def time_export(path: Path) -> dict:
-    """Live against artifact img/s (tools/export_bench.py's cell):
-    MobileNetV2 bfloat16, seeded weights, BatchNorm unfolded, batch
-    HEADLINE_BATCH of images in [-1, 1], CUDA events around
-    EXPORT_TIMING_ITERS calls, in turns live, artifact, artifact, live."""
     from tfssd_torch.utils.export import export_predict, load_exported
 
     cfg, model = predict.load_model("mobilenet_v2", None, SEED, CARD,
                                     compute_dtype=BF16, fold_bn=False)
     anchors = generate_anchors(cfg)
-    anchors_t = torch.from_numpy(anchors).to(CARD)
     x = torch.from_numpy(np.random.default_rng(SEED).uniform(
         -1, 1, (HEADLINE_BATCH, cfg.img_size, cfg.img_size, 3)).astype(
             np.float32)).to(CARD)
-
-    def live():
-        with torch.no_grad():
-            deltas, logits = model(x)
-            return decode_predictions(anchors_t, deltas, logits, cfg)
-
-    blob = export_predict(model, anchors, cfg, HEADLINE_BATCH)
-    path.write_bytes(blob)
-    serve = load_exported(path.read_bytes(), "cuda")
-    same = all(torch.equal(a, b) for a, b in zip(live(), serve(x)))
-    readings = {"live": [], "artifact": []}
-    for name in ("live", "artifact", "artifact", "live"):
-        fn = live if name == "live" else (lambda: serve(x))
-        readings[name].append(
-            HEADLINE_BATCH * 1e3 / time_ms(fn, EXPORT_TIMING_ITERS))
-    live_ips = float(np.mean(readings["live"]))
-    art_ips = float(np.mean(readings["artifact"]))
-    print(f"export: MobileNetV2 bf16 batch {HEADLINE_BATCH}: live "
-          f"{readings['live']} img/s, artifact {readings['artifact']} img/s "
-          f"(ratio {art_ips / live_ips:.3f}; {len(blob) / 2**20:.2f} MiB; "
-          f"NMSResults bit-equal {same}; {CARD_LINE})")
-    return dict(live_img_per_s=live_ips, artifact_img_per_s=art_ips,
-                bf16_same=same)
+    with torch.no_grad():
+        live = decode_predictions(torch.from_numpy(anchors).to(CARD),
+                                  *model(x), cfg)
+    serve = load_exported(export_predict(model, anchors, cfg,
+                                         HEADLINE_BATCH), "cuda")
+    same = all(map(torch.equal, live, serve(x)))
+    print(f"export: MobileNetV2 bfloat16 artifact at batch {HEADLINE_BATCH} "
+          f"on the card, NMSResult bit-equal to the live model's: {same}")
+    if not same:
+        raise AssertionError("export: the bfloat16 artifact differs")
+    return dict(out["mobilenet_v2"], mean_ap=artifact_map, vgg={
+        name: out[name] for name in EXPORT_VGG})
 
 
 # The resume phase: the JAX trainer's committed checkpoint, read whole
@@ -1855,17 +1657,15 @@ def resume_phase() -> dict:
     byte."""
     from tfssd_torch.utils.checkpoint import OrbaxCheckpoints
 
-    t0 = time.perf_counter()
     tree = OrbaxCheckpoints(str(TRAINED_DIR)).restore_train_state(
         RESUME_STEP)
-    read_s = time.perf_counter() - t0
     leaves = flatten_tree(tree)
     opt = [a for k, a in leaves.items() if k.startswith("opt_state/")]
     counts = [int(leaves[k]) for k in ("step", "opt_state/0/count",
                                        "opt_state/1/count")]
     mib = sum(a.nbytes for a in leaves.values()) / 2**20
-    print(f"resume: {TRAINED_DIR / str(RESUME_STEP)} read whole in "
-          f"{read_s:.2f} s: {len(leaves)} arrays, {mib:.2f} MiB, of them "
+    print(f"resume: {TRAINED_DIR / str(RESUME_STEP)} read whole: "
+          f"{len(leaves)} arrays, {mib:.2f} MiB, of them "
           f"opt_state {len(opt)} arrays, "
           f"{sum(a.nbytes for a in opt) / 2**20:.2f} MiB; step, Adam's "
           f"count, the schedule's count {counts}")
@@ -1880,9 +1680,7 @@ def resume_phase() -> dict:
     for where, dev in (("card", CARD), ("cpu", torch.device("cpu"))):
         state = create_train_state(cfg, SEED, dev, make_lr_schedule(
             RESUME_STEPS_PER_EPOCH))
-        t0 = time.perf_counter()
         OrbaxCheckpoints(str(TRAINED_DIR)).restore(state, RESUME_STEP)
-        restore_s = time.perf_counter() - t0
         p = next(state.model.parameters())
         adam = state.optimizer.state[p]
         if (state.step != RESUME_STEP or p.device.type != dev.type
@@ -1896,15 +1694,8 @@ def resume_phase() -> dict:
                  for k in ("image", "boxes", "labels")}
         evals[where] = {k: float(v) for k, v in train.make_eval_step(
             anchors, cfg)(state, batch).items()}
-        print(f"resume: restored into the port's TrainState on {dev} in "
-              f"{restore_s:.2f} s; eval metrics {evals[where]}")
-        if where == "card":
-            # the resumed train step as the trainer runs it (augmentation
-            # on), the batch on the card
-            step = make_train_step(anchors, cfg, seed=SEED + 1)
-            step_ms = time_ms(lambda: step(state, batch), 20)
-            print(f"resume: the resumed train step at batch {RESUME_BATCH}"
-                  f": {step_ms:.3f} ms ({CARD_LINE})")
+        print(f"resume: restored into the port's TrainState on {dev}; "
+              f"eval metrics {evals[where]}")
         del state
     eval_gap = max(abs(evals["card"][k] / evals["cpu"][k] - 1)
                    for k in ("loss", "loc_loss", "conf_loss"))
@@ -2001,8 +1792,8 @@ def resume_phase() -> dict:
                              "changed")
     shutil.rmtree(RESUME_DIR)
     return dict(launches=launches, launches_own=launches_own,
-                launches_whole=launches_whole, read_s=read_s, mib=mib,
-                step_ms=step_ms, steps=step_d)
+                launches_whole=launches_whole, mib=mib,
+                steps=step_d)
 
 
 # The port-h5 phase: Keras trunk files of seeded arrays (written by
@@ -2076,26 +1867,20 @@ def port_h5_phase() -> dict:
     KERAS_DIR.mkdir(parents=True)
     files = {"mbv2.h5": "mobilenet_v2", "mbv2.keras": "mobilenet_v2",
              "vgg16.h5": "vgg16"}
-    t0 = time.perf_counter()
     arrays = {name: write_drill(str(KERAS_DIR / name), backbone, SEED)
               for name, backbone in files.items()}
-    print(f"port-h5: drill files written in {time.perf_counter() - t0:.2f} "
-          f"s: " + ", ".join(
-              f"{n} {os.path.getsize(KERAS_DIR / n) / 2**20:.2f} MiB"
-              for n in files))
-    import_s = {}
+    print("port-h5: drill files written: " + ", ".join(
+        f"{n} {os.path.getsize(KERAS_DIR / n) / 2**20:.2f} MiB"
+        for n in files))
     for name, backbone in files.items():
         # the weight import layer: read the file, port it, graft it into a
         # model on the card
         _, model = predict.load_model(backbone, None, SEED, CARD,
                                       fold_bn=False)
-        t0 = time.perf_counter()
         port_h5_into_variables(model, backbone, str(KERAS_DIR / name))
-        torch.cuda.synchronize()
-        import_s[name] = time.perf_counter() - t0
         del model
-    print("port-h5: read, port and graft onto the card: " + ", ".join(
-        f"{n} {t:.3f} s" for n, t in import_s.items()) + f" ({CARD_LINE})")
+    print("port-h5: read, ported and grafted onto the card: "
+          + ", ".join(files))
     mb_trunk = _trunk_state("mobilenet_v2", arrays["mbv2.h5"])
     ckpt = OrbaxCheckpoints(str(TRAINED_DIR))
     tree = ckpt.restore_weights(ckpt.serving_step())
@@ -2111,15 +1896,14 @@ def port_h5_phase() -> dict:
     for label, path, fold in (("h5", h5, False),
                               ("keras", str(KERAS_DIR / "mbv2.keras"), False),
                               ("h5_fold", h5, True)):
-        t0 = time.perf_counter()
         runs[label], launches[f"predict_{label}"] = _serve_counted(
             base + ["--port-h5", path] + ([] if fold else ["--no-fold-bn"]))
         run = runs[label]
         print(f"port-h5: predict.main(--port-h5 {path}"
               f"{'' if fold else ' --no-fold-bn'}): {sum(run.num_valid)} "
               f"images in {len(run.results)} batches, nms_keep launches="
-              f"{launches[f'predict_{label}']}, {time.perf_counter() - t0:.2f}"
-              f" s, mAP {run.mean_ap!r} (heads trained for another trunk)")
+              f"{launches[f'predict_{label}']}, mAP {run.mean_ap!r} (heads "
+              f"trained for another trunk)")
         if run.config.fold_bn != fold:
             raise AssertionError(f"port-h5: {label}: fold_bn "
                                  f"{run.config.fold_bn}")
@@ -2153,7 +1937,6 @@ def port_h5_phase() -> dict:
         "--model-dir", str(KERAS_DIR / "model"),
         "--log-dir", str(KERAS_DIR / "logs")]
     snapshots = []
-    t0 = time.perf_counter()
     run, launches["train"] = _port_h5_train(train_argv, snapshots)
     seeded = init_random_weights(get_model(get_hyper_params("mobilenet_v2")),
                                  SEED).state_dict()
@@ -2170,8 +1953,7 @@ def port_h5_phase() -> dict:
           f"{run.val_batches} validation batch, match_encode launches="
           f"{launches['train']}, losses {losses}, {moved} of the "
           f"{trunk_params} ported trunk parameters moved, Adam holds every "
-          f"parameter: {held == {id(p) for p in params.values()}}, "
-          f"{time.perf_counter() - t0:.2f} s")
+          f"parameter: {held == {id(p) for p in params.values()}}")
     if (launches["train"] != want or run.steps_run != PORT_H5_TRAIN_STEPS
             or not all(math.isfinite(x) for x in losses)
             or moved != trunk_params
@@ -2225,7 +2007,7 @@ def port_h5_phase() -> dict:
     check_outputs_on_cpu("vgg16 port-h5", run, cpu_model, 1,
                          PORT_H5_VGG_BATCH)
     shutil.rmtree(KERAS_DIR)
-    return dict(launches, import_s=import_s)
+    return launches
 
 
 # The data-parallel phase: trainer.main under a process group on the one
@@ -2319,12 +2101,10 @@ def dp_train(out: str, deterministic: bool = True, float64: bool = False,
         if not shard.distributed:
             train.augment_batch = _augment_as_two_ranks
     try:
-        t0 = time.perf_counter()
         match_encode.LAUNCHES = 0
         run = trainer.main(argv)
         torch.cuda.synchronize()
         launches = match_encode.LAUNCHES
-        seconds = time.perf_counter() - t0
     finally:
         (torch.backends.cudnn.deterministic, trainer.create_train_state,
          train.augment_batch) = before
@@ -2332,7 +2112,7 @@ def dp_train(out: str, deterministic: bool = True, float64: bool = False,
                 backend=(torch.distributed.get_backend()
                          if shard.distributed else None),
                 launches=launches, steps=run.steps_run,
-                val_batches=run.val_batches, seconds=seconds,
+                val_batches=run.val_batches,
                 metrics=run.step_metrics, val=run.val_losses,
                 params={k: v.detach().cpu().numpy() for k, v in
                         run.state.model.state_dict().items()})
@@ -2384,7 +2164,7 @@ def _check_dp_rank(r: dict, label: str) -> None:
     want = r["steps"] + r["val_batches"]
     print(f"dp: {label} rank {r['rank']}/{r['world']} ({r['backend']}): "
           f"{r['steps']} steps + {r['val_batches']} validation batches, "
-          f"match_encode launches={r['launches']}, {r['seconds']:.1f} s, "
+          f"match_encode launches={r['launches']}, "
           f"val_losses={r['val']}")
     if r["launches"] != want or r["steps"] != DP_EPOCHS * TRAIN_STEPS:
         raise AssertionError(f"dp: {label} rank {r['rank']}: match_encode "
@@ -2412,8 +2192,7 @@ def dp_phase() -> dict:
         shutil.rmtree(DP_DIR)
     torch.cuda.empty_cache()
     # both worlds at once, beside this process's runs: each rank's cold
-    # start (CUDA context, cuDNN plans) overlaps the others' work; their
-    # seconds are not timings
+    # start (CUDA context, cuDNN plans) overlaps the others' work
     nccl_group = parallel.Group(dp_train, 1, str(DP_DIR / "nccl1"),
                                 backend="nccl")
     gloo_group = parallel.Group(dp_gloo_runs, 2, str(DP_DIR / "gloo2"),
@@ -2479,85 +2258,26 @@ def dp_phase() -> dict:
     return out
 
 
-def time_serving(run, images: np.ndarray, batches, label: str) -> dict:
-    """img/s of uint8 images on the card -> NMSResult at each batch size
-    of `batches`; a batch that does not fit in memory is reported and
-    left out of the result, which the caller checks. Returns
-    {batch: img/s}."""
+def serves_at(run, images: np.ndarray, batches, label: str) -> list:
+    """The batch sizes of `batches` at which `run`'s model serves uint8
+    `images` on the card -> NMSResult, one predict each; a batch that does
+    not fit in device memory is reported and left out of the result, which
+    the caller checks."""
     predict_fn = make_predict_fn(run.model, run.anchors, run.config)
-    out = {}
-    for bs, iters in batches:
+    fits = []
+    for bs in batches:
         x = torch.from_numpy(images[:bs]).to(CARD)
         try:
-            ms = time_ms(lambda: predict_fn(x), iters)
+            predict_fn(x)
+            torch.cuda.synchronize()
         except torch.cuda.OutOfMemoryError:
             del x
             torch.cuda.empty_cache()
-            print(f"timing: {label} serving at batch {bs} does not fit")
+            print(f"fit: {label} serving at batch {bs} does not fit")
             continue
-        out[bs] = bs * 1e3 / ms
-        print(f"timing: {label} serving {out[bs]:.1f} img/s at batch {bs} "
-              f"({ms:.3f} ms per batch, uint8 on device -> NMSResult; "
-              f"{CARD_LINE})")
-    return out
-
-
-def time_keep(boxes, scores, thr, label: str) -> dict:
-    """nms_keep and its plain version on one set of candidates: ms per call
-    through the op (tfssd::nms_keep, the main path's call), device us per
-    launch, host us per call through the op and through the ctypes
-    wrapper alone (nms_keep_cuda), bound."""
-    r, k = scores.shape
-
-    def call():
-        return nms_keep.nms_keep(boxes, scores, *thr)
-
-    ms = time_ms(call, 200)
-    dev_us = graph_us(call)
-    h_us = host_us(call)
-    h_ctypes = host_us(lambda: nms_keep.nms_keep_cuda(boxes, scores, *thr))
-    plain = time_ms(lambda: nms_keep.nms_keep_reference(boxes, scores, *thr),
-                    10)
-    bound, bound_by = keep_bound(r, k)
-    print(f"timing: nms_keep {label} R={r} K={k}: kernel {ms:.5f} ms/call "
-          f"through the op, device {dev_us:.2f} us per launch "
-          f"(graph replay), host {h_us:.2f} us per call through the op, "
-          f"{h_ctypes:.2f} through the ctypes wrapper alone, plain "
-          f"{plain:.5f} ms/call, bound {bound:.6f} ms ({bound_by}; "
-          f"{CARD_LINE})")
-    return dict(ms=ms, device_us=dev_us, host_us=h_us,
-                host_us_ctypes=h_ctypes, plain_ms=plain, bound_ms=bound,
-                bound_by=bound_by)
-
-
-def time_match(anchors, boxes, labels, cfg) -> dict:
-    """match_encode and its plain version on one batch: ms per call
-    through the op (tfssd::match_encode, the main path's call), device us
-    per launch, host us per call through the op and through the ctypes
-    wrapper alone (match_encode_cuda), bound."""
-    args = (anchors, boxes, labels, cfg.iou_threshold, cfg.variances)
-
-    def call():
-        return match_encode.match_encode(anchors, boxes, labels, cfg)
-
-    ms = time_ms(call, 200)
-    dev_us = graph_us(call)
-    h_us = host_us(call)
-    h_ctypes = host_us(lambda: match_encode.match_encode_cuda(*args))
-    plain = time_ms(lambda: matching.match_targets(*args), 20)
-    b, g = labels.shape
-    n = anchors.shape[0]
-    bound = match_bound(n, labels)
-    print(f"timing: match_encode B={b} N={n} G={g} real gts "
-          f"{bound['real_gts']}: kernel {ms:.5f} ms/call through the op, "
-          f"device {dev_us:.2f} us per launch (graph replay), host "
-          f"{h_us:.2f} us per call through the op, {h_ctypes:.2f} through "
-          f"the ctypes wrapper alone, plain {plain:.5f} ms/call, bound "
-          f"{bound['bound_ms']:.6f} ms ({bound['bound_by']}; padded pairs "
-          f"{bound['bound_ms_padded']:.6f} ms, {bound['bound_by_padded']}; "
-          f"{CARD_LINE})")
-    return dict(ms=ms, device_us=dev_us, host_us=h_us,
-                host_us_ctypes=h_ctypes, plain_ms=plain, **bound)
+        fits.append(bs)
+        print(f"fit: {label} serves a batch of {bs}")
+    return fits
 
 
 def train_path(backbone: str, batch: int, flags: Sequence[str] = ()) -> int:
@@ -2989,39 +2709,6 @@ def remat_step_check(name: str) -> dict:
     return {k: out[k]["peak"] for k in out}
 
 
-def time_train_step(backbone: str, batch: int, compute_dtype="float32",
-                    remat: bool = False) -> dict:
-    """Print the ms per train step of `backbone` at `batch`, augmentation
-    on, device-resident data (host clock around synchronised steps), and
-    the peak device memory of those steps; return both."""
-    cfg = get_hyper_params(backbone, compute_dtype=compute_dtype,
-                           remat=remat)
-    ds = SyntheticDataset(256, image_size=cfg.img_size, seed=0)
-    host, n = stage_arrays(ds, cfg.max_gt_boxes)
-    data = {k: torch.from_numpy(host[k]).to(CARD)
-            for k in ("image", "boxes", "labels")}
-    torch.cuda.reset_peak_memory_stats()
-    state = create_train_state(cfg, SEED, CARD, make_lr_schedule(100))
-    anchors = torch.from_numpy(generate_anchors(cfg)).to(CARD)
-    step = make_cached_train_step(anchors, cfg, augment=True, seed=SEED)
-    rows = torch.from_numpy(trainer.epoch_indices(
-        SEED, 0, n, 13, batch)).to(CARD)
-    for i in range(3):
-        step(state, data, rows[i])
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for i in range(3, 13):
-        step(state, data, rows[i])
-    torch.cuda.synchronize()
-    ms = (time.perf_counter() - t0) * 1e3 / 10
-    peak = torch.cuda.max_memory_allocated() / 2**30
-    print(f"timing: {backbone} {compute_dtype}{' remat' if remat else ''} "
-          f"train {ms:.3f} ms per step, {batch * 1e3 / ms:.1f} img/s at "
-          f"batch {batch} (augmentation on, device-resident uint8 data), "
-          f"peak device memory {peak:.2f} GiB ({CARD_LINE})")
-    return {"ms": ms, "peak_gib": peak}
-
-
 def card_line() -> str:
     """The card's name and power limit, as nvidia-smi prints them."""
     smi = subprocess.run(
@@ -3053,21 +2740,18 @@ def main() -> int:
     section("2. kernel")
     cfg, model = predict.load_model("mobilenet_v2", None, SEED, device)
     images = {bs: eval_images(cfg, bs) for bs in (PATH_BATCH, 64)}
-    thr = (cfg.nms_iou_threshold, cfg.nms_score_threshold)
-    cands, parity = {}, {}
+    seeded_scores, parity = {}, {}
     for bs, imgs in images.items():
-        boxes, scores, err = check_keep_on_candidates(model, cfg, imgs,
-                                                      "mobilenet_v2")
-        cands[scores.shape[0]] = (boxes, scores)
+        scores, err = check_keep_on_candidates(model, cfg, imgs,
+                                               "mobilenet_v2")
+        seeded_scores[scores.shape[0]] = scores
         parity["mobilenet_v2", bs] = err
-    vgg_cands, vgg_images, vgg_match = {}, {}, {}
+    vgg_images, vgg_match = {}, {}
     for name in VGG_CONFIGS:
         vcfg, vmodel = predict.load_model(name, None, SEED, device)
         vgg_images[name] = eval_images(vcfg, 64)
-        boxes, scores, err = check_keep_on_candidates(
+        _, parity[name, PATH_BATCH] = check_keep_on_candidates(
             vmodel, vcfg, vgg_images[name][:PATH_BATCH], name)
-        vgg_cands[name] = (boxes, scores)
-        parity[name, PATH_BATCH] = err
         vgg_match[name] = training_batch(vcfg, device)
         del vmodel
     # the bfloat16 serving path's candidates (float32 scores from
@@ -3078,7 +2762,7 @@ def main() -> int:
         imgs = images if name == "mobilenet_v2" else {
             PATH_BATCH: vgg_images[name][:PATH_BATCH]}
         for bs, batch_images in imgs.items():
-            _, _, parity[f"{name}_bf16", bs] = check_keep_on_candidates(
+            _, parity[f"{name}_bf16", bs] = check_keep_on_candidates(
                 bmodel, bcfg, batch_images, f"{name} bf16")
         del bmodel
     check_keep_cases(device)
@@ -3089,9 +2773,7 @@ def main() -> int:
     check_match_cases(device)
 
     section("2b. classwise keep")
-    t_phase = time.perf_counter()
     classwise = classwise_keep_phase(device)
-    print(f"classwise keep: phase took {time.perf_counter() - t_phase:.1f} s")
 
     section("3. path")
     run, launches = serving_path("mobilenet_v2", PATH_IMAGES, 2, PATH_BATCH)
@@ -3106,6 +2788,32 @@ def main() -> int:
                  else (VGG_PATH_IMAGES, 1, VGG_CPU_IMAGES))
         bf16_runs[name], bf16_launches[name] = serving_path_bf16(
             name, *depth, f32_run)
+    fits = serves_at(run, images[64], (PATH_BATCH, 64), "mobilenet_v2")
+    if set(fits) != {PATH_BATCH, 64}:
+        raise AssertionError(f"mobilenet_v2 serves at batches {sorted(fits)}"
+                             f" only")
+    for name in VGG_CONFIGS:
+        fits = serves_at(vgg_runs[name], vgg_images[name], (PATH_BATCH, 64),
+                         name)
+        if 64 not in fits:
+            fits += serves_at(vgg_runs[name], vgg_images[name], (32,), name)
+        if PATH_BATCH not in fits or len(fits) < 2:
+            raise AssertionError(f"{name} serves at batches {sorted(fits)} "
+                                 f"only: neither 64 nor 32 fits")
+    bf16_fits = serves_at(bf16_runs["mobilenet_v2"],
+                          eval_images(cfg, HEADLINE_BATCH),
+                          (PATH_BATCH, 64, HEADLINE_BATCH),
+                          "mobilenet_v2 bf16")
+    if set(bf16_fits) != {PATH_BATCH, 64, HEADLINE_BATCH}:
+        raise AssertionError(f"mobilenet_v2 bf16 serves at batches "
+                             f"{sorted(bf16_fits)} only")
+    for name in VGG_CONFIGS:
+        bf16_fits = serves_at(bf16_runs[name], vgg_images[name],
+                              (PATH_BATCH, 64), f"{name} bf16")
+        if set(bf16_fits) != {PATH_BATCH, 64}:
+            raise AssertionError(f"{name} bf16 serves at batches "
+                                 f"{sorted(bf16_fits)} only")
+    del vgg_runs, bf16_runs
     trained = {name: train_path_that_fits(name) for name in TRAIN_CONFIGS}
     trained_bf16 = {name: train_path_that_fits(name, ("--bf16",))
                     for name in TRAIN_CONFIGS}
@@ -3116,103 +2824,41 @@ def main() -> int:
         remat_step_check(name)
 
     section("4. trained")
-    trained_run = trained_path(cands)
+    trained_run = trained_path(seeded_scores)
 
     section("4b. voc")
-    t_voc = time.perf_counter()
     roots = make_voc_drills()
     voc = {name: voc_config(name, trained[name][0],
                             roots[get_hyper_params(name).img_size])
            for name in TRAIN_CONFIGS}
     voc_profile_and_nans(trained["mobilenet_v2"][0], roots[300])
-    print(f"voc: phase took {time.perf_counter() - t_voc:.1f} s")
 
     section("4c. export")
-    t_phase = time.perf_counter()
     exported = export_phase(trained_run["unfolded"])
-    print(f"export: phase took {time.perf_counter() - t_phase:.1f} s")
 
     section("4d. data parallel")
-    t_phase = time.perf_counter()
     dp = dp_phase()
-    print(f"dp: phase took {time.perf_counter() - t_phase:.1f} s")
 
     section("4e. resume")
-    t_phase = time.perf_counter()
     resumed = resume_phase()
-    print(f"resume: phase took {time.perf_counter() - t_phase:.1f} s")
 
     section("4f. port-h5")
-    t_phase = time.perf_counter()
     ported = port_h5_phase()
-    print(f"port-h5: phase took {time.perf_counter() - t_phase:.1f} s")
 
-    section("5. timing")
-    fits = time_serving(run, images[64], ((PATH_BATCH, 30), (64, 10)),
-                        "mobilenet_v2")
-    if set(fits) != {PATH_BATCH, 64}:
-        raise AssertionError(f"mobilenet_v2 serves at batches {sorted(fits)}"
-                             f" only")
-    for name in VGG_CONFIGS:
-        fits = time_serving(vgg_runs[name], vgg_images[name],
-                            ((PATH_BATCH, 10), (64, 5)), name)
-        if 64 not in fits:
-            fits.update(time_serving(vgg_runs[name], vgg_images[name],
-                                     ((32, 5),), name))
-        if PATH_BATCH not in fits or len(fits) < 2:
-            raise AssertionError(f"{name} serves at batches {sorted(fits)} "
-                                 f"only: neither 64 nor 32 fits")
-    bf16_fits = time_serving(bf16_runs["mobilenet_v2"],
-                             eval_images(cfg, HEADLINE_BATCH),
-                             ((PATH_BATCH, 30), (64, 10),
-                              (HEADLINE_BATCH, 5)), "mobilenet_v2 bf16")
-    if set(bf16_fits) != {PATH_BATCH, 64, HEADLINE_BATCH}:
-        raise AssertionError(f"mobilenet_v2 bf16 serves at batches "
-                             f"{sorted(bf16_fits)} only")
-    for name in VGG_CONFIGS:
-        bf16_fits = time_serving(bf16_runs[name], vgg_images[name],
-                                 ((PATH_BATCH, 10), (64, 5)),
-                                 f"{name} bf16")
-        if set(bf16_fits) != {PATH_BATCH, 64}:
-            raise AssertionError(f"{name} bf16 serves at batches "
-                                 f"{sorted(bf16_fits)} only")
-    rows = {r: time_keep(boxes, scores, thr, "mobilenet_v2")
-            for r, (boxes, scores) in sorted(cands.items())}
-    vgg_rows = {name: time_keep(boxes, scores, thr, name)
-                for name, (boxes, scores) in vgg_cands.items()}
-    for name, (batch, _) in trained.items():
-        time_train_step(name, batch)
-    for name, (batch, _) in trained_bf16.items():
-        time_train_step(name, batch, BF16)
-    time_train_step("vgg16_512", trained_remat[0], BF16, remat=True)
-    me_row = time_match(m_anchors, m_boxes, m_labels, cfg)
-    me_rows = {batch[0].shape[0]: time_match(*batch, get_hyper_params(name))
-               for name, batch in vgg_match.items()}
-    ssd512 = get_hyper_params("vgg16_512")
-    full_row = time_match(*full_g_batch(ssd512, device), ssd512)
-    print(card_line())
-
-    section("6. kernels")
+    section("5. kernels")
     print(f"chip_smoke: whole run {time.perf_counter() - t_start:.1f} s")
     r_path = PATH_BATCH * (cfg.total_labels - 1)
-    path_row, big_row = rows[r_path], rows[max(rows)]
-    timed = ("ms", "device_us", "host_us", "host_us_ctypes", "plain_ms",
-             "bound_ms")
-    match_timed = timed + ("bound_ms_padded", "real_gts")
     entry = {
         "name": "nms_keep", "route": "cuda",
         "source": "tfssd_torch/csrc/nms_keep.cu",
         "replaces": reference_site("ops/kernels/nms_keep.py",
                                    "nms_keep_pallas"),
         "launches": launches, "max_abs_err": float(max(parity.values())),
-        **path_row, "library_ms": None, "bit_equal": True,
+        "bit_equal": True,
         "shape": f"R={r_path},K={cfg.max_detections_per_class}",
-        **{f"{key}_R{max(rows)}": big_row[key] for key in timed},
     }
     for name in VGG_CONFIGS:
         entry[f"launches_{name}"] = vgg_launches[name]
-        entry.update({f"{key}_{name}": vgg_rows[name][key]
-                      for key in timed})
     for name in TRAIN_CONFIGS:
         entry[f"launches_bf16_{name}"] = bf16_launches[name]
     entry["launches_trained_mobilenet_v2"] = trained_run["launches"]
@@ -3221,10 +2867,7 @@ def main() -> int:
     for name, e in exported["vgg"].items():
         entry[f"launches_export_fresh_process_{name}"] = e["launches"]
         entry[f"export_size_mib_{name}"] = e["size_mib"]
-    entry.update({f"export_{k}": exported[k] for k in (
-        "live_img_per_s", "artifact_img_per_s", "size_mib")})
-    for r, row in trained_run["keep_rows"].items():
-        entry.update({f"{key}_trained_R{r}": row[key] for key in timed})
+    entry["export_size_mib"] = exported["size_mib"]
     b, g = m_labels.shape
     match_entry = {
         "name": "match_encode", "route": "cuda",
@@ -3232,14 +2875,9 @@ def main() -> int:
         "replaces": reference_site("ops/kernels/match_encode.py",
                                    "match_encode_pallas"),
         "launches": trained["mobilenet_v2"][1],
-        "max_abs_err": match_err,
-        **me_row, "library_ms": None, "labels_bit_equal": True,
+        "max_abs_err": match_err, "labels_bit_equal": True,
         "shape": f"B={b},N={m_anchors.shape[0]},G={g}",
     }
-    for n, row in me_rows.items():
-        match_entry.update({f"{key}_N{n}": row[key] for key in match_timed})
-    match_entry.update({f"{key}_N{ssd512.total_anchors}_full_G": full_row[key]
-                        for key in match_timed})
     for name in VGG_CONFIGS:
         match_entry[f"train_batch_{name}"], match_entry[
             f"launches_{name}"] = trained[name]
@@ -3265,7 +2903,7 @@ def main() -> int:
     classwise_entry = {
         "name": "classwise_keep", "route": "cuda",
         "source": "tfssd_torch/csrc/classwise_keep.cu", "replaces": None,
-        "bit_equal": True, "library_ms": None, **classwise}
+        "bit_equal": True, **classwise}
     print(json.dumps({"kernels": [entry, match_entry, classwise_entry]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

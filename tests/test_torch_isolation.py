@@ -36,8 +36,8 @@ for mod in pkgutil.walk_packages(tfssd_torch.__path__, "tfssd_torch."):
 # rename cannot drop them
 for name in ("ops.matching", "ops.kernels.match_encode", "ops.losses",
              "data.augment", "data.loader", "train", "trainer",
-             "profile_train", "utils.checkpoint", "utils.metrics",
-             "utils.io", "utils.convert", "models.vgg16",
+             "utils.checkpoint", "utils.metrics", "utils.io",
+             "utils.convert", "models.vgg16",
              # the serving CLI's slice: the orbax reader, VOC and drawing
              "utils.zstd", "utils.ocdbt", "data.voc", "utils.drawing",
              # the training CLI's slice: tracing, the VOC drill writer

@@ -33,8 +33,6 @@ standard library only. Its structure mirrors the JAX package's file names:
   predict.py           the serving CLI (python -m tfssd_torch.predict)
   trainer.py           the training CLI (python -m tfssd_torch.trainer)
   parallel.py          data parallelism over torch.distributed (torchrun)
-  profile_serving.py   where the serving time goes on the card
-  profile_train.py     where a train step's time goes on the card
 
 Public functions keep the JAX package's layouts (NHWC images, (B, N, 4)
 boxes); modules inside are NCHW. Entry points run on "cuda" unless the

@@ -57,6 +57,16 @@ Phases, in order; any failure ends the run with a non-zero exit:
               torch.cuda.set_sync_debug_mode("error") (nothing read back,
               no tensor made from the host); a whole RetinaNet predict
               launches classwise_keep once and nms_keep never.
+  2c. grouped conv — tfssd::grouped_conv3x3 (RetinaNet's grouped 3x3
+              convs with their bias and ReLU) at the seven shapes of
+              retina800-serve-b8's 16 grouped convs (batch 8, 32 groups of
+              4 to 32 channels, strides 1 and 2, 200 to 25 pixels), with
+              and without the ReLU, against its plain version and against
+              F.conv2d with TF32 off: each output within the float32
+              round-off bound 2 (9 cg + 1) 2^-24 (|x| * |w| + |b|); a
+              synchronise after each launch; a whole RetinaNet predict
+              under torch.cuda.set_sync_debug_mode("error") launches it 16
+              times.
   3. path   — serving: `python -m tfssd_torch.predict --random-weights`
               (its main(), device-cached) serves 32
               synthetic images at batch 8 through SSD300-MobileNetV2 at
@@ -294,7 +304,9 @@ Phases, in order; any failure ends the run with a non-zero exit:
      launches_port_h5_{predict_h5,predict_keras,predict_h5_fold,
      predict_vgg16} and match_encode's on its trainer runs as
      launches_port_h5_{train,resume}; classwise_keep's entry with its
-     launches in phase 2b's predict), then the one-line JSON result, last.
+     launches in phase 2b's predict; grouped_conv3x3's with its launches
+     in phase 2c's predict and its largest error over the bound), then the
+     one-line JSON result, last.
      Kernel time on the path is the benchmark's to read (portbench/), not
      this script's.
 
@@ -323,6 +335,7 @@ from typing import Sequence
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from tfssd_torch import get_hyper_params, parallel, predict, train, trainer
 from tfssd_torch.data.augment import augment_batch
@@ -337,8 +350,8 @@ from tfssd_torch.models.decoder import (decode_boxes_and_scores,
 from tfssd_torch.models.ssd import get_model, init_random_weights
 from tfssd_torch.ops import matching, nms
 from tfssd_torch.ops.boxes import generate_anchors
-from tfssd_torch.ops.kernels import (build, classwise_keep, match_encode,
-                                     nms_keep)
+from tfssd_torch.ops.kernels import (build, classwise_keep, grouped_conv3x3,
+                                     match_encode, nms_keep)
 from tfssd_torch.ops.kernels.classwise_keep_cases import (random_candidates,
                                                           split_cases)
 from tfssd_torch.ops.kernels.match_encode_cases import match_cases
@@ -364,7 +377,7 @@ TRAIN_STEPS = 3
 # ~40x (SSD300-VGG16) and ~110x (SSD512) a MobileNetV2 image.
 PARITY_BATCH = {"mobilenet_v2": 8, "vgg16": 2, "vgg16_512": 1}
 SEED = 0
-KERNELS = ("nms_keep", "match_encode", "classwise_keep")
+KERNELS = ("nms_keep", "match_encode", "classwise_keep", "grouped_conv3x3")
 BF16 = "bfloat16"
 # The JAX benchmark's serving headline batch (MobileNetV2, bfloat16).
 HEADLINE_BATCH = 256
@@ -654,6 +667,90 @@ def classwise_keep_phase(device=CARD) -> dict:
           f"the sync debug mode; a predict launches classwise_keep once, "
           f"nms_keep never")
     return {"launches": launches, "shape": f"B={b},T={t},C={c}"}
+
+
+# The grouped conv's phase: the 16 grouped 3x3 convs of retina800-serve-b8's
+# trunk at batch 8, (channels, input side, stride, convs of that shape).
+GROUPED_SHAPES = ((128, 200, 1, 3), (256, 200, 2, 1), (256, 100, 1, 3),
+                  (512, 100, 2, 1), (512, 50, 1, 5), (1024, 50, 2, 1),
+                  (1024, 25, 1, 2))
+GROUPED_GROUPS = 32
+
+
+def _grouped_bound(x, w, b, stride):
+    """Each output's float32 round-off bound for two sums of the same
+    9 * cg + 1 terms (the bias one of them) in any order:
+    2 (9 cg + 1) 2^-24 (|x| * |w| + |b|), the ReLU moving neither."""
+    cg = w.shape[1]
+    mag = F.conv2d(x.abs(), w.abs(), b.abs(), stride, 1, 1,
+                   x.shape[1] // cg)
+    return 2 * (9 * cg + 1) * 2.0 ** -24 * mag
+
+
+def grouped_conv_phase(device=CARD) -> dict:
+    """tfssd::grouped_conv3x3 at the seven shapes of retina800-serve-b8's
+    grouped convs (batch 8, 32 groups; ReLU'd activations, He-scaled
+    weights, a bias of either sign), with and without the ReLU, against
+    its plain version and against F.conv2d with TF32 off, each output
+    within the float32 round-off bound of _grouped_bound; a synchronise
+    after every launch, so a fault shows where it happened; a whole
+    RetinaNet predict (the benchmark's configuration and seeded weights)
+    under torch.cuda.set_sync_debug_mode("error") launches the kernel once
+    for each of the trunk's 16 grouped convs."""
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    worst = 0.0
+    saved = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        for c, side, stride, _ in GROUPED_SHAPES:
+            cg = c // GROUPED_GROUPS
+            x = torch.randn(PATH_BATCH, c, side, side, device=device,
+                            generator=gen).relu_()
+            w = torch.randn(c, cg, 3, 3, device=device, generator=gen) * (
+                2 / (9 * cg)) ** 0.5
+            b = torch.randn(c, device=device, generator=gen) * 0.1
+            bound = _grouped_bound(x, w, b, stride)
+            for relu in (False, True):
+                got = grouped_conv3x3.grouped_conv3x3(x, w, b, stride, relu)
+                torch.cuda.synchronize()
+                plain = grouped_conv3x3.grouped_conv3x3_reference(
+                    x, w, b, stride, relu)
+                conv = F.conv2d(x, w, b, stride, 1, 1, GROUPED_GROUPS)
+                conv = F.relu(conv) if relu else conv
+                ratios = [float(((got - want).abs() / bound).max())
+                          for want in (plain, conv)]
+                if not max(ratios) <= 1.0:
+                    raise AssertionError(
+                        f"grouped_conv3x3 at C={c} side={side} stride="
+                        f"{stride} relu={relu}: |kernel - plain| and "
+                        f"|kernel - conv2d| reach {ratios} of the bound")
+                worst = max(worst, *ratios)
+            print(f"kernel: grouped_conv3x3 B={PATH_BATCH} C={c} "
+                  f"{side}->{got.shape[-1]} stride {stride} (width {cg}): "
+                  f"within {max(ratios):.3f} of the float32 bound of the "
+                  f"plain version and of F.conv2d (TF32 off), with and "
+                  f"without the ReLU")
+            del x, w, b, bound, got, plain, conv
+    finally:
+        torch.backends.cudnn.allow_tf32 = saved
+    _, predict_fn, images, _ = retina_request(device)
+    torch.cuda.synchronize()
+    grouped_conv3x3.LAUNCHES = 0
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        with torch.no_grad():
+            predict_fn(images)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    launches = grouped_conv3x3.LAUNCHES
+    if launches != 16:
+        raise AssertionError(f"a RetinaNet predict launched grouped_conv3x3 "
+                             f"{launches} times, not 16")
+    print(f"kernel: a RetinaNet predict launches grouped_conv3x3 16 times, "
+          f"with no sync under the sync debug mode")
+    return {"launches": launches, "max_bound_ratio": worst,
+            "shapes": len(GROUPED_SHAPES)}
 
 
 def check_keep_on_candidates(model, cfg, images: np.ndarray, label: str):
@@ -2775,6 +2872,9 @@ def main() -> int:
     section("2b. classwise keep")
     classwise = classwise_keep_phase(device)
 
+    section("2c. grouped conv")
+    grouped = grouped_conv_phase(device)
+
     section("3. path")
     run, launches = serving_path("mobilenet_v2", PATH_IMAGES, 2, PATH_BATCH)
     vgg_runs, vgg_launches = {}, {}
@@ -2904,7 +3004,12 @@ def main() -> int:
         "name": "classwise_keep", "route": "cuda",
         "source": "tfssd_torch/csrc/classwise_keep.cu", "replaces": None,
         "bit_equal": True, **classwise}
-    print(json.dumps({"kernels": [entry, match_entry, classwise_entry]}))
+    grouped_entry = {
+        "name": "grouped_conv3x3", "route": "cuda",
+        "source": "tfssd_torch/csrc/grouped_conv3x3.cu", "replaces": None,
+        **grouped}
+    print(json.dumps({"kernels": [entry, match_entry, classwise_entry,
+                                  grouped_entry]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}), flush=True)

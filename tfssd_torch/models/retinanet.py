@@ -21,6 +21,13 @@ portbench/reference/retinanet.py.
   subnet, torchvision's (dx, dy, dw, dh)); outputs location-major, anchor
   next, class last, the levels concatenated P3 first.
 
+With BatchNorm folded, each bottleneck's grouped 3x3 conv and its ReLU run
+in one hand-written kernel, tfssd::grouped_conv3x3
+(ops/kernels/grouped_conv3x3.py), wherever autograd records nothing and the
+input is float32 on a card or lies on the CPU (ConvBN.forward); the
+profiler counter "conv/grouped_kernel" counts those calls (16 a predict at
+the published depths). Elsewhere the conv is F.conv2d.
+
 Padding is PyTorch's symmetric k // 2, not the SSD layers' TensorFlow
 "SAME". Parameter names follow the benchmark's Flax-style tree
 (backbone.layer1.block0.conv2.conv, fpn.inner3, head.cls_out, ...), so
@@ -41,6 +48,7 @@ from torch import nn
 
 from tfssd_torch.config import RetinaNetConfig
 from tfssd_torch.models.layers import Conv2d
+from tfssd_torch.ops.kernels import grouped_conv3x3
 from tfssd_torch.utils import profiling
 
 
@@ -63,10 +71,38 @@ class ConvBN(nn.Module):
         self.act = act
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self._takes_grouped_kernel(x):
+            profiling.count("conv/grouped_kernel", 1)
+            return grouped_conv3x3.grouped_conv3x3(
+                x, self.conv.weight, self.conv.bias, self.conv.stride[0],
+                self.act)
         x = self.conv(x)
         if self.bn is not None:
             x = self.bn(x)
         return F.relu(x) if self.act else x
+
+    def _takes_grouped_kernel(self, x: torch.Tensor) -> bool:
+        """Whether this call runs tfssd::grouped_conv3x3 (the bottleneck's
+        grouped 3x3 with BatchNorm folded, bias and ReLU in the kernel):
+        a 3x3, padding 1, dilation 1 conv of stride 1 or 2 with a bias,
+        groups of a width the kernel takes and as many outputs as inputs,
+        computed in the parameters' dtype, on a contiguous input that is
+        float32 on a card or lies on the CPU (the plain version), with
+        nothing for autograd to record."""
+        conv = self.conv
+        return (conv.bias is not None and conv.groups > 1
+                and conv.kernel_size == (3, 3) and conv.padding == (1, 1)
+                and conv.dilation == (1, 1)
+                and conv.stride[0] == conv.stride[1]
+                and conv.stride[0] in grouped_conv3x3.STRIDES
+                and conv.in_channels == conv.out_channels
+                and conv.in_channels // conv.groups in grouped_conv3x3.WIDTHS
+                and conv.compute_dtype is None
+                and x.dtype == conv.weight.dtype and x.is_contiguous()
+                and (x.device.type == "cpu" or (
+                    x.is_cuda and x.dtype == torch.float32))
+                and not (torch.is_grad_enabled() and any(
+                    t.requires_grad for t in (x, conv.weight, conv.bias))))
 
 
 class Bottleneck(nn.Module):

@@ -2,7 +2,7 @@
 JAX package, each beside its plain PyTorch version and a launch counter,
 and each registered as a custom operator (torch.library) whose CPU
 implementation is the plain version and whose CUDA implementation is the
-kernel. Importing this package registers both operators, which is all a
+kernel. Importing this package registers every operator, which is all a
 process that loads an exported program needs of the port besides
 utils/export.py.
 
@@ -12,8 +12,11 @@ utils/export.py.
                      (csrc/match_encode.cu)
   classwise_keep.py — tfssd::classwise_keep, RetinaNet's class-wise exact
                      greedy NMS keep (csrc/classwise_keep.cu; no TPU kernel)
+  grouped_conv3x3.py — tfssd::grouped_conv3x3, RetinaNet's grouped 3x3
+                     convs with bias and ReLU (csrc/grouped_conv3x3.cu; no
+                     TPU kernel)
   build.py         — nvcc into build/tfssd_torch/, loaded with ctypes
 """
 
 from tfssd_torch.ops.kernels import (  # noqa: F401
-    classwise_keep, match_encode, nms_keep)
+    classwise_keep, grouped_conv3x3, match_encode, nms_keep)

@@ -67,6 +67,21 @@ Phases, in order; any failure ends the run with a non-zero exit:
               synchronise after each launch; a whole RetinaNet predict
               under torch.cuda.set_sync_debug_mode("error") launches it 16
               times.
+  2d. roi align — tfssd::roi_align (Mask R-CNN's multi-level RoIAlign)
+              against its plain version on the card, bit for bit, at the
+              shapes of one request of maskrcnn-serve-b8 (the benchmark's
+              configuration file and seeded weights, 8 synthetic 800x1066
+              frames): the 8,000 proposals at 7x7 and the 800 detections
+              at 14x14 on that request's P2-P5, and every case of
+              tfssd_torch/ops/kernels/roi_align_cases.py (boxes under a
+              cell, at the frame's edges, outside the maps, at the edges
+              between levels) at both sizes; tfssd::classwise_keep at the
+              request's two splits, the proposals' (T = 4,663, 5 levels)
+              and the detections' (T = 90,000, 90 classes, a class at most
+              1,000), against its plain version, bit for bit; a whole
+              predict under torch.cuda.set_sync_debug_mode("error")
+              launches roi_align twice and classwise_keep twice, and
+              fills its 1,000 proposals and 100 detections an image.
   3. path   — serving: `python -m tfssd_torch.predict --random-weights`
               (its main(), device-cached) serves 32
               synthetic images at batch 8 through SSD300-MobileNetV2 at
@@ -305,7 +320,8 @@ Phases, in order; any failure ends the run with a non-zero exit:
      predict_vgg16} and match_encode's on its trainer runs as
      launches_port_h5_{train,resume}; classwise_keep's entry with its
      launches in phase 2b's predict; grouped_conv3x3's with its launches
-     in phase 2c's predict and its largest error over the bound), then the
+     in phase 2c's predict and its largest error over the bound;
+     roi_align's with its launches in phase 2d's predict), then the
      one-line JSON result, last.
      Kernel time on the path is the benchmark's to read (portbench/), not
      this script's.
@@ -314,7 +330,7 @@ It exits non-zero without a result when no CUDA device is available, and
 in a directory that holds this script without the tfssd_torch package
 (or without trained/ssd_mobilenet_v2, or without a zstd decoder). It runs
 from the checkout's root and writes nothing outside build/. The whole run
-took 418.6 s on an NVIDIA H100 80GB HBM3 at 700 W (PERF.md §6);
+took 534.2 s on an NVIDIA H100 80GB HBM3 at 700 W (PERF.md §6 PR 26);
 phase 4b's 300-pixel drill tree was halved to make room for 4d's float64
 runs.
 """
@@ -343,19 +359,23 @@ from tfssd_torch.data.loader import TakeDataset, stage_arrays
 from tfssd_torch.data.synthetic import SyntheticDataset
 from tfssd_torch.evaluate import detection_agreement
 from tfssd_torch.make_voc_drill import make_drill
+from tfssd_torch.models import decoder
 from tfssd_torch.models.decoder import (decode_boxes_and_scores,
                                         decode_predictions, make_predict_fn,
-                                        normalize_images, preprocess_images,
+                                        normalize_images, pad_images,
+                                        preprocess_images,
                                         retinanet_candidates)
+from tfssd_torch.models.maskrcnn import roi_levels
 from tfssd_torch.models.ssd import get_model, init_random_weights
 from tfssd_torch.ops import matching, nms
 from tfssd_torch.ops.boxes import generate_anchors
 from tfssd_torch.ops.kernels import (build, classwise_keep, grouped_conv3x3,
-                                     match_encode, nms_keep)
+                                     match_encode, nms_keep, roi_align)
 from tfssd_torch.ops.kernels.classwise_keep_cases import (random_candidates,
                                                           split_cases)
 from tfssd_torch.ops.kernels.match_encode_cases import match_cases
 from tfssd_torch.ops.kernels.nms_keep_cases import keep_cases
+from tfssd_torch.ops.kernels.roi_align_cases import crafted_boxes
 from tfssd_torch.utils import profiling
 from tfssd_torch.utils.convert import flatten_tree, variables_to_state_dict
 from tfssd_torch.train import (create_train_state, make_lr_schedule,
@@ -377,7 +397,8 @@ TRAIN_STEPS = 3
 # ~40x (SSD300-VGG16) and ~110x (SSD512) a MobileNetV2 image.
 PARITY_BATCH = {"mobilenet_v2": 8, "vgg16": 2, "vgg16_512": 1}
 SEED = 0
-KERNELS = ("nms_keep", "match_encode", "classwise_keep", "grouped_conv3x3")
+KERNELS = ("nms_keep", "match_encode", "classwise_keep", "grouped_conv3x3",
+           "roi_align")
 BF16 = "bfloat16"
 # The JAX benchmark's serving headline batch (MobileNetV2, bfloat16).
 HEADLINE_BATCH = 256
@@ -751,6 +772,112 @@ def grouped_conv_phase(device=CARD) -> dict:
           f"with no sync under the sync debug mode")
     return {"launches": launches, "max_bound_ratio": worst,
             "shapes": len(GROUPED_SHAPES)}
+
+
+# Mask R-CNN's phase: one request of maskrcnn-serve-b8 (its configuration
+# file, the benchmark's seeded weights, batch 8 of 800x1066 frames).
+MASKRCNN_CONFIG = (ROOT / "portbench" / "configs"
+                   / "maskrcnn-r50fpn-800x1066.json")
+MASKRCNN_BATCH = 8
+
+
+def maskrcnn_phase(device=CARD) -> dict:
+    """Phase 2d (module docstring): tfssd::roi_align and the class-wise
+    keep at the splits of a Mask R-CNN request, against their plain
+    versions, bit for bit."""
+    from portbench import harness
+    from portbench.reference import maskrcnn as mask_ref
+
+    cfg = json.loads(MASKRCNN_CONFIG.read_text())
+    tree = harness.numpy_tree(mask_ref.seeded_weights(cfg, SEED, device))
+    mcfg, model = predict.load_model(cfg["port_backbone"], tree, 0, device,
+                                     fold_bn=cfg["fold_bn"])
+    predict_fn = make_predict_fn(model, generate_anchors(mcfg), mcfg)
+    images = mask_ref.frames(cfg, MASKRCNN_BATCH, SEED).to(device)
+    mean, std = (torch.tensor(v, dtype=torch.float32, device=device)
+                 for v in (mcfg.image_mean, mcfg.image_std))
+    splits = []
+    nms_call = decoder.classwise_nms
+
+    def recorded(*args):
+        splits.append(args)
+        return nms_call(*args)
+
+    decoder.classwise_nms = recorded
+    try:
+        with torch.no_grad():
+            res = predict_fn(images)
+            maps = model.features(pad_images(normalize_images(
+                images, mean, std), mcfg.padded_size))[:len(mcfg.roi_levels)]
+    finally:
+        decoder.classwise_nms = nms_call
+    torch.cuda.synchronize()
+    scales = list(mcfg.roi_scales)
+    pooled = 0
+    cases = [("proposals", res.proposals, mcfg.box_roi_size),
+             ("detections", res.boxes, mcfg.mask_roi_size)]
+    cases += [(name, boxes.to(device), size) for name, boxes in crafted_boxes(
+        MASKRCNN_BATCH, 256, *mcfg.image_size, SEED)
+        for size in (mcfg.box_roi_size, mcfg.mask_roi_size)]
+    for name, boxes, size in cases:
+        boxes = boxes.contiguous()
+        levels = roi_levels(boxes, mcfg)
+        got = roi_align.roi_align(maps, boxes, levels, scales, size,
+                                  mcfg.roi_sampling_ratio)
+        torch.cuda.synchronize()
+        want = roi_align.roi_align_reference(maps, boxes, levels, scales,
+                                             size, mcfg.roi_sampling_ratio)
+        if not torch.equal(got, want):
+            raise AssertionError(
+                f"roi_align differs from its plain version on {name} at "
+                f"{size}x{size}: {int((got != want).sum())} of "
+                f"{got.numel()}, largest {float((got - want).abs().max())}")
+        pooled += got.numel()
+        print(f"kernel: roi_align {name} {tuple(boxes.shape[:2])} at "
+              f"{size}x{size}: bit-equal to the plain version (levels "
+              f"{torch.bincount(levels.flatten(), minlength=4).tolist()})")
+        del got, want
+    for label, args in zip(("proposals", "detections"), splits):
+        boxes, scores, classes, c, iou_thr, score_thr, _, bound = args
+        sb, ss, _, counts, starts = nms.class_order(boxes, scores, classes,
+                                                    c, score_thr)
+        keep_args = (sb, ss, counts[:, :c], starts[:, :c], iou_thr,
+                     score_thr, bound)
+        got = classwise_keep.classwise_keep(*keep_args)
+        torch.cuda.synchronize()
+        if not torch.equal(got, classwise_keep.classwise_keep_reference(
+                *keep_args)):
+            raise AssertionError(f"classwise_keep differs from its plain "
+                                 f"version at the {label}' split")
+        print(f"kernel: classwise_keep at the {label}' split (B="
+              f"{sb.shape[0]} T={sb.shape[1]} C={c}, bound {bound}): "
+              f"bit-equal to the plain version, kept {int(got.sum())} of "
+              f"{int(counts[:, :c].sum())} valid, largest class "
+              f"{int(counts[:, :c].max())}")
+    roi_align.LAUNCHES = classwise_keep.LAUNCHES = 0
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        with torch.no_grad():
+            res = predict_fn(images)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    launches = (roi_align.LAUNCHES, classwise_keep.LAUNCHES)
+    if launches != (2, 2):
+        raise AssertionError(f"a Mask R-CNN predict launched roi_align and "
+                             f"classwise_keep {launches} times, not twice "
+                             f"each")
+    filled = (res.proposal_count.tolist(), res.valid.tolist())
+    if (min(filled[0]) < mcfg.rpn_post_nms_top_n
+            or min(filled[1]) < mcfg.box_detections_per_img):
+        raise AssertionError(f"a Mask R-CNN predict leaves its caps unfilled:"
+                             f" proposals {filled[0]}, detections "
+                             f"{filled[1]}")
+    print(f"kernel: a Mask R-CNN predict launches roi_align and "
+          f"classwise_keep twice each, with no sync under the sync debug "
+          f"mode; proposals {filled[0]}, detections {filled[1]}")
+    return {"launches": launches[0], "cases": len(cases),
+            "outputs_compared": pooled}
 
 
 def check_keep_on_candidates(model, cfg, images: np.ndarray, label: str):
@@ -2875,6 +3002,9 @@ def main() -> int:
     section("2c. grouped conv")
     grouped = grouped_conv_phase(device)
 
+    section("2d. roi align")
+    roi = maskrcnn_phase(device)
+
     section("3. path")
     run, launches = serving_path("mobilenet_v2", PATH_IMAGES, 2, PATH_BATCH)
     vgg_runs, vgg_launches = {}, {}
@@ -3008,8 +3138,12 @@ def main() -> int:
         "name": "grouped_conv3x3", "route": "cuda",
         "source": "tfssd_torch/csrc/grouped_conv3x3.cu", "replaces": None,
         **grouped}
+    roi_entry = {
+        "name": "roi_align", "route": "cuda",
+        "source": "tfssd_torch/csrc/roi_align.cu", "replaces": None,
+        "bit_equal": True, **roi}
     print(json.dumps({"kernels": [entry, match_entry, classwise_entry,
-                                  grouped_entry]}))
+                                  grouped_entry, roi_entry]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}), flush=True)

@@ -5,7 +5,8 @@ against (tests/test_torch_*.py). This package imports torch, numpy and the
 standard library only. Its structure mirrors the JAX package's file names:
 
   config.py            SSDConfig, get_hyper_params (plain copy);
-                       RetinaNetConfig (no JAX counterpart)
+                       RetinaNetConfig, MaskRCNNConfig (no JAX
+                       counterpart)
   ops/boxes.py         anchors, IoU, encode/decode, clip
   ops/nms.py           combined per-class NMS
   ops/matching.py      gt matching + target encoding (plain version)
@@ -14,7 +15,8 @@ standard library only. Its structure mirrors the JAX package's file names:
                        versions, build
   models/              MobileNetV2 and VGG16 (SSD300, SSD512) trunks +
                        extras, multibox head, SSD, decoder; RetinaNet
-                       with a ResNeXt50-32x4d FPN trunk (serving only)
+                       with a ResNeXt50-32x4d FPN trunk and Mask R-CNN
+                       with a ResNet50 FPN trunk (serving only)
   utils/fold_bn.py     BatchNorm folding for serving
   utils/convert.py     Flax variables / TrainState (numpy) -> torch
   utils/checkpoint.py  torch.save checkpoints, best-3 retention, resume;

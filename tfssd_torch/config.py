@@ -8,7 +8,9 @@ config round-trips between the two packages unchanged.
 
 RetinaNetConfig states the fourth configuration, RetinaNet with a
 ResNeXt50-32x4d FPN trunk (get_hyper_params("retinanet_rx50fpn_800")),
-which the JAX package does not have: models/retinanet.py.
+which the JAX package does not have: models/retinanet.py. MaskRCNNConfig
+states the fifth, Mask R-CNN with a ResNet50-FPN trunk
+(get_hyper_params("maskrcnn_r50fpn_800x1066")): models/maskrcnn.py.
 
 Anchor-count bookkeeping: every cell of feature map k carries
 ``len(aspect_ratios[k]) + 1`` prior boxes — one per aspect ratio at scale
@@ -217,6 +219,115 @@ class RetinaNetConfig:
         return self
 
 
+@dataclasses.dataclass(frozen=True)
+class MaskRCNNConfig:
+    """Static hyperparameters of Mask R-CNN (He et al., arXiv:1703.06870)
+    with a ResNet-50 trunk (arXiv:1512.03385), an FPN (arXiv:1612.03144)
+    and Faster R-CNN's region proposals and box head (arXiv:1506.01497), as
+    torchvision's maskrcnn_resnet50_fpn (v1) defines them
+    (models/maskrcnn.py has the equations). Boxes are pixels, x-first
+    [x0, y0, x1, y1], as torchvision's."""
+
+    backbone: str
+    # the frame (height, width) and the batch's size once padded to a
+    # multiple of size_divisible, zeros on the right and the bottom
+    image_size: Tuple[int, int]
+    padded_size: Tuple[int, int]
+    # (height, width) of P2-P6; P6 is max_pool2d(P5, 1, 2)
+    feature_map_shapes: Tuple[Tuple[int, int], ...]
+    # torchvision's AnchorGenerator: one pixel size a level, ratios h / w;
+    # base boxes round([-w/2, -h/2, w/2, h/2]), shifted by multiples of the
+    # per-axis stride padded_size // map size
+    anchor_sizes: Tuple[Tuple[int, ...], ...] = (
+        (32,), (64,), (128,), (256,), (512,))
+    anchor_ratios: Tuple[float, ...] = (0.5, 1.0, 2.0)
+    size_divisible: int = 32
+    # softmax classes, the background column 0 included (COCO's 91 ids)
+    num_classes: int = 91
+    stem_channels: int = 64
+    groups: int = 1
+    stage_blocks: Tuple[int, ...] = (3, 4, 6, 3)
+    stage_widths: Tuple[int, ...] = (64, 128, 256, 512)
+    stage_channels: Tuple[int, ...] = (256, 512, 1024, 2048)
+    fpn_channels: int = 256
+    image_mean: Tuple[float, float, float] = (0.485, 0.456, 0.406)
+    image_std: Tuple[float, float, float] = (0.229, 0.224, 0.225)
+    bn_eps: float = 1e-5
+    # BoxCoder: dw and dh clamped above at box_clamp
+    box_clamp: float = math.log(1000.0 / 16)
+    # region proposals, per image: each level's top rpn_pre_nms_top_n
+    # objectness logits, decoded with rpn_box_weights, clipped, boxes of a
+    # side under rpn_min_size and scores under rpn_score_threshold dropped,
+    # NMS by level at rpn_nms_iou_threshold, the top rpn_post_nms_top_n
+    rpn_box_weights: Tuple[float, float, float, float] = (1.0, 1.0, 1.0,
+                                                          1.0)
+    rpn_pre_nms_top_n: int = 1000
+    rpn_post_nms_top_n: int = 1000
+    rpn_nms_iou_threshold: float = 0.7
+    rpn_score_threshold: float = 0.0
+    rpn_min_size: float = 1e-3
+    # MultiScaleRoIAlign over P2-P5 (aligned=False): a box of area a goes
+    # to level floor(roi_canonical_level + log2(sqrt(a) /
+    # roi_canonical_scale) + 1e-6), clamped to the pooled levels
+    roi_levels: Tuple[int, ...] = (2, 3, 4, 5)
+    roi_canonical_scale: int = 224
+    roi_canonical_level: int = 4
+    roi_sampling_ratio: int = 2
+    box_roi_size: int = 7
+    mask_roi_size: int = 14
+    representation_size: int = 1024
+    # detections, per image: pairs scoring above box_score_threshold,
+    # boxes of a side under box_min_size dropped, NMS per class at
+    # box_nms_iou_threshold, the top box_detections_per_img
+    box_weights: Tuple[float, float, float, float] = (10.0, 10.0, 5.0, 5.0)
+    box_score_threshold: float = 0.05
+    box_min_size: float = 1e-2
+    box_nms_iou_threshold: float = 0.5
+    box_detections_per_img: int = 100
+    mask_layers: Tuple[int, ...] = (256, 256, 256, 256)
+    compute_dtype: str = "float32"
+    fold_bn: bool = False
+
+    @property
+    def anchors_per_cell(self) -> int:
+        return len(self.anchor_ratios) * len(self.anchor_sizes[0])
+
+    @property
+    def anchors_per_map(self) -> Tuple[int, ...]:
+        return tuple(h * w * self.anchors_per_cell
+                     for h, w in self.feature_map_shapes)
+
+    @property
+    def total_anchors(self) -> int:
+        return sum(self.anchors_per_map)
+
+    @property
+    def strides(self) -> Tuple[Tuple[int, int], ...]:
+        """torchvision's per-axis integer strides (down, across)."""
+        ph, pw = self.padded_size
+        return tuple((ph // h, pw // w) for h, w in self.feature_map_shapes)
+
+    @property
+    def roi_scales(self) -> Tuple[float, ...]:
+        """The pooled levels' scales, 2 ** -level (MultiScaleRoIAlign's
+        scales, inferred from the map heights)."""
+        return tuple(2.0 ** -level for level in self.roi_levels)
+
+    @property
+    def mask_size(self) -> int:
+        return 2 * self.mask_roi_size
+
+    def validate(self) -> "MaskRCNNConfig":
+        assert len(self.anchor_sizes) == len(self.feature_map_shapes)
+        assert len({len(s) for s in self.anchor_sizes}) == 1
+        assert all(p % self.size_divisible == 0 and p >= i for p, i in zip(
+            self.padded_size, self.image_size))
+        assert len(self.roi_levels) == len(self.feature_map_shapes) - 1
+        assert self.compute_dtype == "float32", (
+            "Mask R-CNN is built in float32 only")
+        return self
+
+
 _AR_4 = (1.0, 2.0, 0.5)                 # -> 4 boxes/cell (with extra ar=1)
 _AR_6 = (1.0, 2.0, 0.5, 3.0, 1.0 / 3.0)  # -> 6 boxes/cell
 
@@ -260,11 +371,20 @@ _BACKBONE_CONFIGS = {
         anchor_sizes=tuple((x, int(x * 2 ** (1 / 3)), int(x * 2 ** (2 / 3)))
                            for x in (32, 64, 128, 256, 512)),
     ),
+    # Mask R-CNN-ResNet50-FPN on COCO's 640x480 frames at min_size 800:
+    # 800x1066, padded to 800x1088; 217,413 anchors on P2-P6.
+    "maskrcnn_r50fpn_800x1066": MaskRCNNConfig(
+        backbone="resnet50_fpn",
+        image_size=(800, 1066),
+        padded_size=(800, 1088),
+        feature_map_shapes=((200, 272), (100, 136), (50, 68), (25, 34),
+                            (13, 17)),
+    ),
 }
 
 
 def get_hyper_params(backbone: str, **kwargs
-                     ) -> Union[SSDConfig, RetinaNetConfig]:
+                     ) -> Union[SSDConfig, RetinaNetConfig, MaskRCNNConfig]:
     """Mirror of reference `train_utils.get_hyper_params(backbone, **kwargs)`.
 
     Returns the per-backbone config with any keyword overrides applied.

@@ -9,7 +9,10 @@
 //   boxes (B, T, 4) f32 corners and scores (B, T) f32, each image's
 //     candidates ordered class by class, by score within a class;
 //   counts, starts (B, C) int64 (row stride `stride`): class c of image b
-//     holds positions starts[b, c] .. starts[b, c] + counts[b, c] - 1;
+//     holds positions starts[b, c] .. starts[b, c] + counts[b, c] - 1, of
+//     which the first min(count, bound) take part: `bound` is the caller's
+//     static bound on a class's count (T where it knows none; Mask R-CNN's
+//     box stage has T = 90,000 pairs an image, at most 1,000 in a class);
 //   keep (B, T) bytes, zero on entry; for each class's candidate j,
 //     keep[j] = valid[j] and no kept candidate i < j of the class has
 //     iou(i, j) > iou_threshold; valid = score > score_threshold, iou as in
@@ -68,7 +71,7 @@ constexpr int kWarps = 16;
 constexpr int kThreads = kWarps * 32;
 constexpr int kSteps = 4;  // independent IoUs of a step
 constexpr unsigned kFull = 0xffffffffu;
-// Candidates of an image: the kept list (T - 1 boxes of 16 B) and the
+// Candidates of a class: the kept list (bound - 1 boxes of 16 B) and the
 // static shared memory fit the 227 KB a block can use.
 constexpr int kMaxT = 12288;
 constexpr size_t kMaxDynamic = (kMaxT - 1) * sizeof(float4);
@@ -195,7 +198,7 @@ classwise_keep_kernel(const float* __restrict__ boxes,
                       const int64_t* __restrict__ counts,
                       const int64_t* __restrict__ starts, int64_t stride,
                       uint8_t* __restrict__ keep, int t_len, int classes,
-                      float iou_threshold, float score_threshold) {
+                      int bound, float iou_threshold, float score_threshold) {
   extern __shared__ float4 kept_boxes[];
   __shared__ __align__(16) Smem sm;
 
@@ -205,8 +208,9 @@ classwise_keep_kernel(const float* __restrict__ boxes,
   const int64_t start = starts[b * stride + c];
   if (count <= 0 || start < 0 || start >= t_len) return;
   const int first = static_cast<int>(start);
-  const int n = static_cast<int>(
+  int n = static_cast<int>(
       count < t_len - first ? count : static_cast<int64_t>(t_len - first));
+  n = min(n, bound);
   const size_t at = static_cast<size_t>(b) * t_len + first;
   const float* seg_boxes = boxes + at * 4;
   const float* seg_scores = scores + at;
@@ -370,6 +374,7 @@ classwise_keep_kernel(const float* __restrict__ boxes,
 
 // boxes (B, T, 4) f32, scores (B, T) f32, counts and starts (B, C) int64
 // with row stride `stride` and unit column stride, keep (B, T) bytes zeroed,
+// `bound` the largest class taken (1 .. min(T, kMaxT)),
 // all on CUDA device `device`; launches on `stream` (a stream of that
 // device), switching the calling thread's current device for the launch if
 // it is another. Returns a cudaError_t.
@@ -377,9 +382,10 @@ extern "C" int classwise_keep_launch(const void* boxes, const void* scores,
                                      const void* counts, const void* starts,
                                      long long stride, void* keep, int b,
                                      int t, int c, float iou_threshold,
-                                     float score_threshold, int device,
-                                     void* stream) {
-  if (b < 0 || t < 0 || c < 0 || t > kMaxT || stride < c || device < 0 ||
+                                     float score_threshold, int bound,
+                                     int device, void* stream) {
+  if (b < 0 || t < 0 || c < 0 || bound > kMaxT || bound > t ||
+      (t > 0 && bound < 1) || stride < c || device < 0 ||
       static_cast<long long>(b) * c > 0x7fffffffLL) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -391,12 +397,13 @@ extern "C" int classwise_keep_launch(const void* boxes, const void* scores,
     err = cudaSetDevice(device);
     if (err != cudaSuccess) return static_cast<int>(err);
   }
-  // The kept list holds the kept boxes of every row but a class's last.
+  // The kept list holds the kept boxes of every row but a class's last,
+  // of a class of at most `bound` candidates.
   // Above 48 KB the kernel has to be allowed its dynamic shared memory:
   // once a device, to the largest size (so concurrent callers agree), and
   // so never inside a stream capture after the first call.
   const size_t dynamic =
-      t > kRow ? static_cast<size_t>(t - 1) * sizeof(float4) : 0;
+      bound > kRow ? static_cast<size_t>(bound - 1) * sizeof(float4) : 0;
   static bool allowed[kDevices] = {};
   if (dynamic > 48 * 1024 && !(device < kDevices && allowed[device])) {
     err = cudaFuncSetAttribute(classwise_keep_kernel,
@@ -410,7 +417,8 @@ extern "C" int classwise_keep_launch(const void* boxes, const void* scores,
         static_cast<const float*>(boxes), static_cast<const float*>(scores),
         static_cast<const int64_t*>(counts),
         static_cast<const int64_t*>(starts), stride,
-        static_cast<uint8_t*>(keep), t, c, iou_threshold, score_threshold);
+        static_cast<uint8_t*>(keep), t, c, bound, iou_threshold,
+        score_threshold);
     err = cudaGetLastError();
   }
   if (current != device) {

@@ -125,9 +125,10 @@ class Bottleneck(nn.Module):
 
 
 class ResNeXt(nn.Module):
-    """NCHW images -> [C3, C4, C5]."""
+    """NCHW images -> [C2, C3, C4, C5], the outputs of the four stages; at
+    groups 1 a ResNet (Mask R-CNN's trunk, models/maskrcnn.py)."""
 
-    def __init__(self, config: RetinaNetConfig):
+    def __init__(self, config):
         super().__init__()
         bn = dict(fold_bn=config.fold_bn, eps=config.bn_eps)
         self.stem = ConvBN(3, config.stem_channels, 7, 2, **bn)
@@ -148,28 +149,39 @@ class ResNeXt(nn.Module):
         c2 = self.layer1(x)
         c3 = self.layer2(c2)
         c4 = self.layer3(c3)
-        return [c3, c4, self.layer4(c4)]
+        return [c2, c3, c4, self.layer4(c4)]
 
 
 class FPN(nn.Module):
-    """[C3, C4, C5] -> [P3, P4, P5, P6, P7] (torchvision's
-    FeaturePyramidNetwork with LastLevelP6P7(256, 256): P6 from P5)."""
+    """Torchvision's FeaturePyramidNetwork over [C_first, ..., C5] ->
+    [P_first, ..., P5] and its extra levels: with `p6p7` (RetinaNet,
+    first level 3) LastLevelP6P7(256, 256), P6 a 3x3 stride-2 conv on P5
+    and P7 one on ReLU(P6); else (Mask R-CNN, first level 2)
+    LastLevelMaxPool, P6 = max_pool2d(P5, 1, 2)."""
 
-    def __init__(self, in_channels: Tuple[int, ...], channels: int):
+    def __init__(self, in_channels: Tuple[int, ...], channels: int,
+                 first_level: int = 3, p6p7: bool = True):
         super().__init__()
-        for level, c in zip((3, 4, 5), in_channels):
+        self.levels = tuple(range(first_level,
+                                  first_level + len(in_channels)))
+        for level, c in zip(self.levels, in_channels):
             self.add_module(f"inner{level}", _conv(c, channels, 1))
             self.add_module(f"layer{level}", _conv(channels, channels, 3))
-        self.p6 = _conv(channels, channels, 3, 2)
-        self.p7 = _conv(channels, channels, 3, 2)
+        self.p6p7 = p6p7
+        if p6p7:
+            self.p6 = _conv(channels, channels, 3, 2)
+            self.p7 = _conv(channels, channels, 3, 2)
 
     def forward(self, feats: List[torch.Tensor]) -> List[torch.Tensor]:
-        inner = self.inner5(feats[2])
-        outs = [self.layer5(inner)]
-        for level, c in ((4, feats[1]), (3, feats[0])):
+        top = self.levels[-1]
+        inner = getattr(self, f"inner{top}")(feats[-1])
+        outs = [getattr(self, f"layer{top}")(inner)]
+        for level, c in zip(self.levels[-2::-1], feats[-2::-1]):
             inner = getattr(self, f"inner{level}")(c) + F.interpolate(
                 inner, size=c.shape[-2:], mode="nearest")
             outs.insert(0, getattr(self, f"layer{level}")(inner))
+        if not self.p6p7:
+            return outs + [F.max_pool2d(outs[-1], 1, 2)]
         p6 = self.p6(outs[-1])
         return outs + [p6, self.p7(F.relu(p6))]
 
@@ -219,7 +231,8 @@ class RetinaNet(nn.Module):
     def forward(self, images: torch.Tensor
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
         with profiling.span("trunk"):
-            feats = self.backbone(images.permute(0, 3, 1, 2).contiguous())
+            feats = self.backbone(images.permute(0, 3, 1, 2).contiguous(
+                ))[1:]
         with profiling.span("fpn"):
             maps = self.fpn(feats)
         for m, side in zip(maps, self.config.feature_map_shapes):

@@ -28,9 +28,10 @@ import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from tfssd_torch.config import RetinaNetConfig, SSDConfig
+from tfssd_torch.config import MaskRCNNConfig, RetinaNetConfig, SSDConfig
 from tfssd_torch.models.head import MultiboxHead
 from tfssd_torch.models.layers import L2Norm, batch_stats_frozen
+from tfssd_torch.models.maskrcnn import MaskRCNN
 from tfssd_torch.models.mobilenet_v2 import MobileNetV2Backbone
 from tfssd_torch.models.retinanet import RetinaNet
 from tfssd_torch.models.vgg16 import (TAP_CHANNELS_300, TAP_CHANNELS_512,
@@ -85,12 +86,15 @@ class SSD(nn.Module):
         return self.head(self.features(images))
 
 
-def get_model(config: Union[SSDConfig, RetinaNetConfig]
-              ) -> Union[SSD, RetinaNet]:
+def get_model(config: Union[SSDConfig, RetinaNetConfig, MaskRCNNConfig]
+              ) -> nn.Module:
     """Mirror of the reference `get_model(hyper_params)`; a RetinaNetConfig
-    builds models/retinanet.py's RetinaNet."""
+    builds models/retinanet.py's RetinaNet, a MaskRCNNConfig
+    models/maskrcnn.py's MaskRCNN."""
     if isinstance(config, RetinaNetConfig):
         return RetinaNet(config)
+    if isinstance(config, MaskRCNNConfig):
+        return MaskRCNN(config)
     return SSD(config)
 
 

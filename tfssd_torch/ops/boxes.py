@@ -9,7 +9,9 @@ center form is [cy, cx, h, w].
 
 RetinaNet's anchors and decode (retinanet_anchors, decode_retinanet) follow
 torchvision's AnchorGenerator and BoxCoder instead, in the same normalized
-y-first layout; the JAX package has no counterpart.
+y-first layout; the JAX package has no counterpart. Mask R-CNN's
+(maskrcnn_anchors, decode_pixels, clip_to_frame, large_enough) keep
+torchvision's own layout: pixels, x-first [x0, y0, x1, y1].
 """
 
 from __future__ import annotations
@@ -20,7 +22,7 @@ from typing import Sequence, Tuple
 import numpy as np
 import torch
 
-from tfssd_torch.config import RetinaNetConfig, SSDConfig
+from tfssd_torch.config import MaskRCNNConfig, RetinaNetConfig, SSDConfig
 
 EPS = 1e-8
 
@@ -42,9 +44,11 @@ def generate_base_anchors(
 def generate_anchors(config: SSDConfig) -> np.ndarray:
     """All prior boxes for a config, (total_anchors, 4) float32 corners,
     centers at (i + 0.5) / f_k, clipped to [0, 1]; a RetinaNetConfig's are
-    retinanet_anchors'."""
+    retinanet_anchors', a MaskRCNNConfig's maskrcnn_anchors'."""
     if isinstance(config, RetinaNetConfig):
         return retinanet_anchors(config)
+    if isinstance(config, MaskRCNNConfig):
+        return maskrcnn_anchors(config)
     scales = config.map_scales
     out = []
     for k, fm in enumerate(config.feature_map_shapes):
@@ -100,6 +104,66 @@ def retinanet_anchors(config: RetinaNetConfig) -> np.ndarray:
         raise ValueError(f"{anchors.shape[0]} anchors, config expects "
                          f"{config.total_anchors}")
     return anchors
+
+
+def maskrcnn_anchors(config: MaskRCNNConfig) -> np.ndarray:
+    """Mask R-CNN's anchors, (total_anchors, 4) float32 pixel [x0, y0, x1,
+    y1] on the padded batch, not clipped: per level the base anchors
+    shifted by (j * stride_x, i * stride_y), location-major, anchor next
+    (torchvision's grid_anchors; every value an integer, so exact)."""
+    out = []
+    for (h, w), (sy, sx), sizes in zip(config.feature_map_shapes,
+                                       config.strides, config.anchor_sizes):
+        base = retinanet_base_anchors(sizes, config.anchor_ratios)
+        ys, xs = np.meshgrid(np.arange(h, dtype=np.float64) * sy,
+                             np.arange(w, dtype=np.float64) * sx,
+                             indexing="ij")
+        shifts = np.stack([xs, ys, xs, ys], axis=-1).reshape(-1, 1, 4)
+        out.append((shifts + base[None].astype(np.float64)).reshape(-1, 4))
+    anchors = np.concatenate(out).astype(np.float32)
+    if anchors.shape[0] != config.total_anchors:
+        raise ValueError(f"{anchors.shape[0]} anchors, config expects "
+                         f"{config.total_anchors}")
+    return anchors
+
+
+def decode_pixels(boxes: torch.Tensor, deltas: torch.Tensor,
+                  weights: Tuple[float, float, float, float],
+                  clamp: float) -> torch.Tensor:
+    """torchvision's BoxCoder.decode_single on pixel x-first boxes, in its
+    operation order: deltas (dx, dy, dw, dh) over `weights`, dw and dh
+    clamped above at `clamp`; (..., 4) boxes and deltas -> (..., 4)
+    [x0, y0, x1, y1], not clipped."""
+    widths = boxes[..., 2] - boxes[..., 0]
+    heights = boxes[..., 3] - boxes[..., 1]
+    ctr_x = boxes[..., 0] + 0.5 * widths
+    ctr_y = boxes[..., 1] + 0.5 * heights
+    wx, wy, ww, wh = weights
+    dx = deltas[..., 0] / wx
+    dy = deltas[..., 1] / wy
+    dw = torch.clamp(deltas[..., 2] / ww, max=clamp)
+    dh = torch.clamp(deltas[..., 3] / wh, max=clamp)
+    pcx = dx * widths + ctr_x
+    pcy = dy * heights + ctr_y
+    half_w = 0.5 * (torch.exp(dw) * widths)
+    half_h = 0.5 * (torch.exp(dh) * heights)
+    return torch.stack([pcx - half_w, pcy - half_h, pcx + half_w,
+                        pcy + half_h], dim=-1)
+
+
+def clip_to_frame(boxes: torch.Tensor, height: int, width: int
+                  ) -> torch.Tensor:
+    """torchvision's clip_boxes_to_image: x into [0, width], y into
+    [0, height]."""
+    x = boxes[..., 0::2].clamp(0, width)
+    y = boxes[..., 1::2].clamp(0, height)
+    return torch.stack([x[..., 0], y[..., 0], x[..., 1], y[..., 1]], dim=-1)
+
+
+def large_enough(boxes: torch.Tensor, min_size: float) -> torch.Tensor:
+    """torchvision's remove_small_boxes as a mask: both sides >= min_size."""
+    return ((boxes[..., 2] - boxes[..., 0] >= min_size)
+            & (boxes[..., 3] - boxes[..., 1] >= min_size))
 
 
 def decode_retinanet(anchors: torch.Tensor, deltas: torch.Tensor,

@@ -15,8 +15,10 @@ utils/export.py.
   grouped_conv3x3.py — tfssd::grouped_conv3x3, RetinaNet's grouped 3x3
                      convs with bias and ReLU (csrc/grouped_conv3x3.cu; no
                      TPU kernel)
+  roi_align.py     — tfssd::roi_align, Mask R-CNN's multi-level RoIAlign
+                     (csrc/roi_align.cu; no TPU kernel)
   build.py         — nvcc into build/tfssd_torch/, loaded with ctypes
 """
 
 from tfssd_torch.ops.kernels import (  # noqa: F401
-    classwise_keep, grouped_conv3x3, match_encode, nms_keep)
+    classwise_keep, grouped_conv3x3, match_encode, nms_keep, roi_align)

@@ -18,6 +18,13 @@ the candidates that an earlier row's kept one overlaps and running
 nms_keep's plain version on the rows. Both give exact greedy NMS, so they
 agree bit for bit (chip_smoke.py holds them on the card).
 
+`max_count` is a static bound on any class's count (0: T), which the
+caller knows from how it made the candidates: Mask R-CNN's box stage has
+T = 90,000 pairs an image but at most one a proposal in a class, 1,000.
+The kernel's kept list is then sized by it and not by T, and the plain
+version walks ceil(max_count / K) passes; a class holding more is judged
+on its first max_count candidates in both.
+
 `classwise_keep` is the custom operator `tfssd::classwise_keep`, made as
 ops/kernels/nms_keep.py makes `tfssd::nms_keep`: its CPU implementation
 is the plain version, its CUDA implementation the kernel, which raises if
@@ -37,8 +44,9 @@ from tfssd_torch.ops.kernels.nms_keep import nms_keep_reference
 
 # Candidates of a row of the kernel's walk.
 ROW = 256
-# Candidates of an image the kernel takes: its list of kept boxes lives
-# in shared memory (csrc/classwise_keep.cu: kMaxT).
+# Candidates of a class the kernel takes (T, or max_count where given):
+# its list of kept boxes lives in shared memory (csrc/classwise_keep.cu:
+# kMaxT).
 MAX_T = 12288
 
 # Launches of the CUDA kernel in this process; incremented only where the
@@ -58,7 +66,7 @@ def _launch_fn():
                        ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p,
                        ctypes.c_int, ctypes.c_int, ctypes.c_int,
                        ctypes.c_float, ctypes.c_float, ctypes.c_int,
-                       ctypes.c_void_p]
+                       ctypes.c_int, ctypes.c_void_p]
         fn.restype = ctypes.c_int
         _FN = fn
     return _FN
@@ -85,15 +93,22 @@ def _check(boxes: torch.Tensor, scores: torch.Tensor, counts: torch.Tensor,
                          "devices")
 
 
+def _bound(t: int, max_count: int) -> int:
+    """The largest class the walk takes: max_count where given, else T."""
+    if max_count < 0:
+        raise ValueError(f"max_count must be >= 0, got {max_count}")
+    return min(t, max_count) if max_count else t
+
+
 def classwise_keep_cuda(boxes: torch.Tensor, scores: torch.Tensor,
                         counts: torch.Tensor, starts: torch.Tensor,
-                        iou_threshold: float,
-                        score_threshold: float) -> torch.Tensor:
+                        iou_threshold: float, score_threshold: float,
+                        max_count: int = 0) -> torch.Tensor:
     """(B, T, 4) f32 boxes and (B, T) f32 scores ordered class by class,
     (B, C) int64 counts and starts of the classes' segments, on a CUDA
-    device -> (B, T) bool keep, by the hand-written kernel; T <= MAX_T.
-    The thresholds are Python numbers: a tensor would have to be read back
-    from the device."""
+    device -> (B, T) bool keep, by the hand-written kernel; the largest
+    class (max_count, else T) <= MAX_T. The thresholds are Python numbers:
+    a tensor would have to be read back from the device."""
     global LAUNCHES
     _check(boxes, scores, counts, starts)
     if isinstance(iou_threshold, torch.Tensor) or isinstance(
@@ -104,8 +119,10 @@ def classwise_keep_cuda(boxes: torch.Tensor, scores: torch.Tensor,
         raise ValueError("classwise_keep_cuda needs CUDA tensors")
     b, t, _ = boxes.shape
     c = counts.shape[1]
-    if t > MAX_T:
-        raise ValueError(f"classwise_keep_cuda takes T <= {MAX_T}, got {t}")
+    bound = _bound(t, max_count)
+    if bound > MAX_T:
+        raise ValueError(f"classwise_keep_cuda takes classes of at most "
+                         f"{MAX_T} candidates, got a bound of {bound}")
     if not (boxes.is_contiguous() and scores.is_contiguous()):
         raise ValueError("boxes and scores must be contiguous")
     # counts and starts may be column slices of wider tables (the sink
@@ -123,7 +140,8 @@ def classwise_keep_cuda(boxes: torch.Tensor, scores: torch.Tensor,
     stream = torch._C._cuda_getCurrentRawStream(device.index)
     err = _launch_fn()(boxes.data_ptr(), scores.data_ptr(), counts.data_ptr(),
                        starts.data_ptr(), stride, keep.data_ptr(), b, t, c,
-                       iou_threshold, score_threshold, device.index, stream)
+                       iou_threshold, score_threshold, bound, device.index,
+                       stream)
     if err != 0:
         raise RuntimeError(f"classwise_keep kernel launch failed: cudaError "
                            f"{err}")
@@ -133,8 +151,8 @@ def classwise_keep_cuda(boxes: torch.Tensor, scores: torch.Tensor,
 
 def classwise_keep_reference(boxes: torch.Tensor, scores: torch.Tensor,
                              counts: torch.Tensor, starts: torch.Tensor,
-                             iou_threshold: float,
-                             score_threshold: float) -> torch.Tensor:
+                             iou_threshold: float, score_threshold: float,
+                             max_count: int = 0) -> torch.Tensor:
     """Plain PyTorch version of the kernel, on any device: the candidates
     cut into rows of K = min(ROW, T) a class, row q of a class holding its
     candidates q*K .. q*K + K - 1. Pass 0 runs every class's first row
@@ -142,12 +160,15 @@ def classwise_keep_reference(boxes: torch.Tensor, scores: torch.Tensor,
     T // (q*K) fullest classes (no more can have one), after marking
     invalid each candidate that a kept one of its class's earlier rows
     overlaps beyond the threshold. So each row's keep is the greedy keep
-    given every earlier decision of its class, in ceil(T / K) passes."""
+    given every earlier decision of its class, in ceil(M / K) passes, M
+    the largest class (max_count, else T)."""
     _check(boxes, scores, counts, starts)
     b, t = scores.shape
     c, dev = counts.shape[1], scores.device
     if t == 0:
         return torch.zeros_like(scores, dtype=torch.bool)
+    bound = _bound(t, max_count)
+    counts = torch.clamp_max(counts, bound)
     neg = torch.tensor(float("-inf"), dtype=scores.dtype, device=dev)
     k = min(ROW, t)
     # column t is a sink for the rows' empty slots
@@ -155,7 +176,7 @@ def classwise_keep_reference(boxes: torch.Tensor, scores: torch.Tensor,
     ss = torch.nn.functional.pad(scores, (0, 1), value=float("-inf"))
     keep = torch.zeros(b, t + 1, dtype=torch.bool, device=dev)
     slots = torch.arange(k, device=dev)
-    for q in range(-(-t // k)):
+    for q in range(-(-bound // k)):
         if q == 0:
             rows = torch.arange(c, device=dev).expand(b, c)
         else:
@@ -189,20 +210,22 @@ def classwise_keep_reference(boxes: torch.Tensor, scores: torch.Tensor,
 
 _LIB = torch.library.Library("tfssd", "FRAGMENT")
 _LIB.define("classwise_keep(Tensor boxes, Tensor scores, Tensor counts, "
-            "Tensor starts, float iou_threshold, float score_threshold) "
-            "-> Tensor")
+            "Tensor starts, float iou_threshold, float score_threshold, "
+            "int max_count=0) -> Tensor")
 _LIB.impl("classwise_keep", classwise_keep_reference, "CPU")
 _LIB.impl("classwise_keep", classwise_keep_cuda, "CUDA")
 
 
 @torch.library.register_fake("tfssd::classwise_keep")
 def _classwise_keep_fake(boxes, scores, counts, starts, iou_threshold,
-                         score_threshold):
+                         score_threshold, max_count=0):
     _check(boxes, scores, counts, starts)
+    _bound(scores.shape[1], max_count)
     return torch.empty_like(scores, dtype=torch.bool)
 
 
-# (boxes, scores, counts, starts, iou_threshold, score_threshold) -> keep,
+# (boxes, scores, counts, starts, iou_threshold, score_threshold[,
+# max_count]) -> keep,
 # by device: the plain version for CPU tensors, the CUDA kernel for CUDA
 # tensors.
 classwise_keep = torch.ops.tfssd.classwise_keep.default

@@ -190,13 +190,17 @@ def class_order(boxes: torch.Tensor, scores: torch.Tensor,
 def classwise_nms(boxes: torch.Tensor, scores: torch.Tensor,
                   classes: torch.Tensor, num_classes: int,
                   iou_threshold: float, score_threshold: float,
-                  max_total_detections: int) -> NMSResult:
+                  max_total_detections: int,
+                  max_class_count: int = 0) -> NMSResult:
     """Greedy NMS within each class of each image's T candidates, (B, T, 4)
     boxes, (B, T) scores and (B, T) classes in 0..C-1 (a candidate scoring
     at or below score_threshold takes no part), then the top
     max_total_detections kept by score, classes in the label space (1..C,
     0 on padding). Exact for any split of the T candidates over the
-    classes, with the same static shapes for every request.
+    classes, with the same static shapes for every request;
+    max_class_count, where the caller gives it (0: none), is a static
+    bound on the candidates of one class that the keep sizes its walk by
+    (ops/kernels/classwise_keep.py: max_count).
 
     The candidates are ordered class by class (class_order), then one
     tfssd::classwise_keep call judges every class of every image: on the
@@ -216,7 +220,7 @@ def classwise_nms(boxes: torch.Tensor, scores: torch.Tensor,
             profiling.count("keep/rows", torch.div(
                 counts + (ROW - 1), ROW, rounding_mode="floor").sum())
         keep = classwise_keep(sb, ss, counts, starts, iou_threshold,
-                              score_threshold)
+                              score_threshold, max_class_count)
     with profiling.span("merge"):
         total = min(max_total_detections, t)
         sel = top_indices(torch.where(keep, ss, float("-inf")), total)

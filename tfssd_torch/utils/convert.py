@@ -7,7 +7,7 @@ The tree comes as nested dicts of numpy arrays ({'params': ...,
 
   params/.../kernel   (H, W, I, O) -> .../weight (O, I, H, W), transpose
                       (3, 2, 0, 1); a depthwise (3, 3, 1, C) becomes
-                      (C, 1, 3, 3)
+                      (C, 1, 3, 3); a Dense kernel (I, O) -> (O, I)
   params/.../bias     -> .../bias
   params/.../bn/scale -> .../bn/weight
   params/.../gamma    -> .../gamma (L2Norm's scale, VGG16's conv4_3_norm)
@@ -63,9 +63,9 @@ def variables_to_state_dict(tree: Mapping[str, Any]
             raise KeyError(f"unexpected variable {path!r}")
         arr = np.asarray(arr, dtype=np.float32)
         if leaf == "kernel":
-            if arr.ndim != 4:
+            if arr.ndim not in (2, 4):
                 raise ValueError(f"{path}: kernel of rank {arr.ndim}")
-            arr = arr.transpose(3, 2, 0, 1)
+            arr = arr.T if arr.ndim == 2 else arr.transpose(3, 2, 0, 1)
         key = ".".join(parts[:-1] + [names[leaf]])
         if key in state:
             raise KeyError(f"two variables map to {key!r}")

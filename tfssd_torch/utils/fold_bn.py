@@ -52,10 +52,10 @@ def fold_batch_norm(state: Dict[str, torch.Tensor],
 
 def fold_for_serving(config, model: torch.nn.Module):
     """(config, model with BN) -> (folded config, folded model), on the
-    model's device and in eval mode, for an SSDConfig or a RetinaNetConfig.
-    Other config overrides are kept; an already folded config, or a model
-    without BatchNorm (VGG16), passes through unchanged, as in the JAX
-    package."""
+    model's device and in eval mode, for an SSDConfig, a RetinaNetConfig or
+    a MaskRCNNConfig. Other config overrides are kept; an already folded
+    config, or a model without BatchNorm (VGG16), passes through unchanged,
+    as in the JAX package."""
     bns = [m for m in model.modules()
            if isinstance(m, torch.nn.BatchNorm2d)]
     if config.fold_bn or not bns:

@@ -82,6 +82,19 @@ Phases, in order; any failure ends the run with a non-zero exit:
               predict under torch.cuda.set_sync_debug_mode("error")
               launches roi_align twice and classwise_keep twice, and
               fills its 1,000 proposals and 100 detections an image.
+  2e. dense conv — tfssd::dense_conv (the ResNet trunks' groups-1 1x1 and
+              3x3 convs with bias, shortcut add and ReLU) at every distinct
+              shape of its calls in one request of maskrcnn-serve-b8 and
+              one of retina800-serve-b8 (batch 8, read from the two
+              predicts themselves), on ReLU'd inputs, He-scaled weights and
+              a bias of either sign: against its plain version and against
+              F.conv2d + shortcut + ReLU with TF32 off, each output within
+              the float32 round-off bound 2 (K + 1 [+ 1]) 2^-24 (|x| *
+              |w| + |b| [+ |shortcut|]) of a sum of K products and the
+              bias [and the shortcut]; a synchronise after each shape; a
+              whole Mask R-CNN predict and a whole RetinaNet predict under
+              torch.cuda.set_sync_debug_mode("error") launch it 52 and 36
+              times.
   3. path   — serving: `python -m tfssd_torch.predict --random-weights`
               (its main(), device-cached) serves 32
               synthetic images at batch 8 through SSD300-MobileNetV2 at
@@ -321,7 +334,9 @@ Phases, in order; any failure ends the run with a non-zero exit:
      launches_port_h5_{train,resume}; classwise_keep's entry with its
      launches in phase 2b's predict; grouped_conv3x3's with its launches
      in phase 2c's predict and its largest error over the bound;
-     roi_align's with its launches in phase 2d's predict), then the
+     dense_conv's with its launches in phase 2e's Mask R-CNN predict and
+     RetinaNet predict and its largest error over the bound; roi_align's
+     with its launches in phase 2d's predict), then the
      one-line JSON result, last.
      Kernel time on the path is the benchmark's to read (portbench/), not
      this script's.
@@ -330,9 +345,10 @@ It exits non-zero without a result when no CUDA device is available, and
 in a directory that holds this script without the tfssd_torch package
 (or without trained/ssd_mobilenet_v2, or without a zstd decoder). It runs
 from the checkout's root and writes nothing outside build/. The whole run
-took 534.2 s on an NVIDIA H100 80GB HBM3 at 700 W (PERF.md §6 PR 26);
-phase 4b's 300-pixel drill tree was halved to make room for 4d's float64
-runs.
+took 332.6 s on an NVIDIA H100 80GB HBM3 at 700 W with phase 2e (PERF.md
+§6; 534.2 s before it, with the Mask R-CNN and RetinaNet trunks in
+cuDNN); phase 4b's 300-pixel drill tree was halved to make room for 4d's
+float64 runs.
 """
 
 from __future__ import annotations
@@ -369,8 +385,9 @@ from tfssd_torch.models.maskrcnn import roi_levels
 from tfssd_torch.models.ssd import get_model, init_random_weights
 from tfssd_torch.ops import matching, nms
 from tfssd_torch.ops.boxes import generate_anchors
-from tfssd_torch.ops.kernels import (build, classwise_keep, grouped_conv3x3,
-                                     match_encode, nms_keep, roi_align)
+from tfssd_torch.ops.kernels import (build, classwise_keep, dense_conv,
+                                     grouped_conv3x3, match_encode, nms_keep,
+                                     roi_align)
 from tfssd_torch.ops.kernels.classwise_keep_cases import (random_candidates,
                                                           split_cases)
 from tfssd_torch.ops.kernels.match_encode_cases import match_cases
@@ -398,7 +415,7 @@ TRAIN_STEPS = 3
 PARITY_BATCH = {"mobilenet_v2": 8, "vgg16": 2, "vgg16_512": 1}
 SEED = 0
 KERNELS = ("nms_keep", "match_encode", "classwise_keep", "grouped_conv3x3",
-           "roi_align")
+           "roi_align", "dense_conv")
 BF16 = "bfloat16"
 # The JAX benchmark's serving headline batch (MobileNetV2, bfloat16).
 HEADLINE_BATCH = 256
@@ -781,10 +798,9 @@ MASKRCNN_CONFIG = (ROOT / "portbench" / "configs"
 MASKRCNN_BATCH = 8
 
 
-def maskrcnn_phase(device=CARD) -> dict:
-    """Phase 2d (module docstring): tfssd::roi_align and the class-wise
-    keep at the splits of a Mask R-CNN request, against their plain
-    versions, bit for bit."""
+def maskrcnn_request(device):
+    """(config, model, predict, images) of one request of
+    maskrcnn-serve-b8."""
     from portbench import harness
     from portbench.reference import maskrcnn as mask_ref
 
@@ -794,6 +810,14 @@ def maskrcnn_phase(device=CARD) -> dict:
                                      fold_bn=cfg["fold_bn"])
     predict_fn = make_predict_fn(model, generate_anchors(mcfg), mcfg)
     images = mask_ref.frames(cfg, MASKRCNN_BATCH, SEED).to(device)
+    return mcfg, model, predict_fn, images
+
+
+def maskrcnn_phase(device=CARD) -> dict:
+    """Phase 2d (module docstring): tfssd::roi_align and the class-wise
+    keep at the splits of a Mask R-CNN request, against their plain
+    versions, bit for bit."""
+    mcfg, model, predict_fn, images = maskrcnn_request(device)
     mean, std = (torch.tensor(v, dtype=torch.float32, device=device)
                  for v in (mcfg.image_mean, mcfg.image_std))
     splits = []
@@ -878,6 +902,117 @@ def maskrcnn_phase(device=CARD) -> dict:
           f"mode; proposals {filled[0]}, detections {filled[1]}")
     return {"launches": launches[0], "cases": len(cases),
             "outputs_compared": pooled}
+
+
+# The dense conv's phase: the trunk convs after the stem of one request of
+# each of maskrcnn-serve-b8 (52) and retina800-serve-b8 (36), batch 8.
+DENSE_LAUNCHES = {"maskrcnn": 52, "retinanet": 36}
+
+
+def dense_conv_calls(predict_fn, images) -> list:
+    """Each tfssd::dense_conv call of one predict, in order, as (x's
+    shape, the weight's shape, stride, shortcut or not, ReLU or not); the
+    launches counted under torch.cuda.set_sync_debug_mode("error")."""
+    calls = []
+    op = dense_conv.dense_conv
+
+    def recorded(x, w, b, shortcut, stride, relu):
+        calls.append((tuple(x.shape), tuple(w.shape), stride,
+                      shortcut is not None, relu))
+        return op(x, w, b, shortcut, stride, relu)
+
+    torch.cuda.synchronize()
+    dense_conv.dense_conv = recorded
+    dense_conv.LAUNCHES = 0
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        with torch.no_grad():
+            predict_fn(images)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+        dense_conv.dense_conv = op
+    torch.cuda.synchronize()
+    if dense_conv.LAUNCHES != len(calls):
+        raise AssertionError(f"dense_conv launched {dense_conv.LAUNCHES} "
+                             f"times for {len(calls)} calls")
+    return calls
+
+
+def _dense_bound(x, w, b, r, stride):
+    """Each output's float32 round-off bound for two sums of the same
+    K + 1 terms (K products and the bias; one more, the shortcut, where
+    there is one) in any order: 2 (K + 1 [+ 1]) 2^-24 (|x| * |w| + |b|
+    [+ |r|]), the ReLU moving neither."""
+    k = w.shape[1] * w.shape[2] * w.shape[3]
+    mag = F.conv2d(x.abs(), w.abs(), b.abs(), stride, w.shape[-1] // 2)
+    if r is not None:
+        mag = mag + r.abs()
+    return 2 * (k + 1 + (r is not None)) * 2.0 ** -24 * mag
+
+
+def dense_conv_phase(device=CARD) -> dict:
+    """Phase 2e (module docstring)."""
+    shapes, launches = {}, {}
+    for name, request in (
+            ("maskrcnn", lambda: maskrcnn_request(device)[2:]),
+            ("retinanet", lambda: retina_request(device)[1:3])):
+        calls = dense_conv_calls(*request())
+        launches[name] = len(calls)
+        if launches[name] != DENSE_LAUNCHES[name]:
+            raise AssertionError(f"a {name} predict launched dense_conv "
+                                 f"{launches[name]} times, not "
+                                 f"{DENSE_LAUNCHES[name]}")
+        for call in calls:
+            shapes.setdefault(call, []).append(name)
+        torch.cuda.empty_cache()
+    print(f"kernel: a Mask R-CNN predict launches dense_conv "
+          f"{launches['maskrcnn']} times, a RetinaNet predict "
+          f"{launches['retinanet']}, with no sync under the sync debug mode")
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    worst = 0.0
+    saved = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        for (xs, ws, stride, has_r, relu), users in shapes.items():
+            m, c, k, _ = ws
+            x = torch.randn(xs, device=device, generator=gen).relu_()
+            w = torch.randn(ws, device=device, generator=gen) * (
+                2 / (c * k * k)) ** 0.5
+            b = torch.randn(m, device=device, generator=gen) * 0.1
+            ys = (xs[0], m, (xs[2] - 1) // stride + 1,
+                  (xs[3] - 1) // stride + 1)
+            r = (torch.randn(ys, device=device, generator=gen).relu_()
+                 if has_r else None)
+            got = dense_conv.dense_conv(x, w, b, r, stride, relu)
+            torch.cuda.synchronize()
+            plain = dense_conv.dense_conv_reference(x, w, b, r, stride, relu)
+            conv = F.conv2d(x, w, b, stride, k // 2)
+            if r is not None:
+                conv = conv + r
+            if relu:
+                conv = F.relu(conv)
+            bound = _dense_bound(x, w, b, r, stride)
+            ratios = [float(((got - want).abs() / bound).max())
+                      for want in (plain, conv)]
+            label = (f"dense_conv B={xs[0]} {c}->{m} {k}x{k} {xs[2]}x"
+                     f"{xs[3]}->{ys[2]}x{ys[3]} stride {stride}"
+                     f"{' +shortcut' if has_r else ''}"
+                     f"{' relu' if relu else ''}")
+            if not max(ratios) <= 1.0:
+                raise AssertionError(f"{label}: |kernel - plain| and "
+                                     f"|kernel - conv2d| reach {ratios} "
+                                     f"of the bound")
+            worst = max(worst, *ratios)
+            print(f"kernel: {label} (x{users.count('maskrcnn')} Mask R-CNN,"
+                  f" x{users.count('retinanet')} RetinaNet): within "
+                  f"{max(ratios):.3f} of the float32 bound of the plain "
+                  f"version and of F.conv2d (TF32 off)")
+            del x, w, b, r, got, plain, conv, bound
+    finally:
+        torch.backends.cudnn.allow_tf32 = saved
+    return {"launches_maskrcnn": launches["maskrcnn"],
+            "launches_retinanet": launches["retinanet"],
+            "max_bound_ratio": worst, "shapes": len(shapes)}
 
 
 def check_keep_on_candidates(model, cfg, images: np.ndarray, label: str):
@@ -3005,6 +3140,9 @@ def main() -> int:
     section("2d. roi align")
     roi = maskrcnn_phase(device)
 
+    section("2e. dense conv")
+    dense = dense_conv_phase(device)
+
     section("3. path")
     run, launches = serving_path("mobilenet_v2", PATH_IMAGES, 2, PATH_BATCH)
     vgg_runs, vgg_launches = {}, {}
@@ -3142,8 +3280,12 @@ def main() -> int:
         "name": "roi_align", "route": "cuda",
         "source": "tfssd_torch/csrc/roi_align.cu", "replaces": None,
         "bit_equal": True, **roi}
+    dense_entry = {
+        "name": "dense_conv", "route": "cuda",
+        "source": "tfssd_torch/csrc/dense_conv.cu", "replaces": None,
+        **dense}
     print(json.dumps({"kernels": [entry, match_entry, classwise_entry,
-                                  grouped_entry, roi_entry]}))
+                                  grouped_entry, roi_entry, dense_entry]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}), flush=True)

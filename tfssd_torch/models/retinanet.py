@@ -23,10 +23,14 @@ portbench/reference/retinanet.py.
 
 With BatchNorm folded, each bottleneck's grouped 3x3 conv and its ReLU run
 in one hand-written kernel, tfssd::grouped_conv3x3
-(ops/kernels/grouped_conv3x3.py), wherever autograd records nothing and the
-input is float32 on a card or lies on the CPU (ConvBN.forward); the
-profiler counter "conv/grouped_kernel" counts those calls (16 a predict at
-the published depths). Elsewhere the conv is F.conv2d.
+(ops/kernels/grouped_conv3x3.py), and every groups-1 1x1 or 3x3 conv after
+the stem in another, tfssd::dense_conv (ops/kernels/dense_conv.py), with
+its bias, ReLU and, for conv3, the bottleneck's shortcut add in its
+epilogue; wherever autograd records nothing and the input is float32 on a
+card or lies on the CPU (ConvBN.forward). The profiler counters
+"conv/grouped_kernel" and "conv/dense_kernel" count those calls (16 and 36
+a RetinaNet predict at the published depths, 0 and 52 a Mask R-CNN one).
+Elsewhere, the stem among them, the conv is F.conv2d.
 
 Padding is PyTorch's symmetric k // 2, not the SSD layers' TensorFlow
 "SAME". Parameter names follow the benchmark's Flax-style tree
@@ -40,7 +44,7 @@ the spans `trunk`, `fpn` and `head` (utils/profiling.py).
 from __future__ import annotations
 
 from collections import OrderedDict
-from typing import List, Tuple
+from typing import List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -48,7 +52,7 @@ from torch import nn
 
 from tfssd_torch.config import RetinaNetConfig
 from tfssd_torch.models.layers import Conv2d
-from tfssd_torch.ops.kernels import grouped_conv3x3
+from tfssd_torch.ops.kernels import dense_conv, grouped_conv3x3
 from tfssd_torch.utils import profiling
 
 
@@ -58,9 +62,10 @@ def _conv(cin: int, cout: int, k: int, stride: int = 1, groups: int = 1,
 
 
 class ConvBN(nn.Module):
-    """Conv (no bias) -> frozen BatchNorm -> ReLU (or none); with fold_bn
-    a biased conv that already holds the BatchNorm (`conv`, `bn` as
-    utils/fold_bn.py names them)."""
+    """Conv (no bias) -> frozen BatchNorm -> the shortcut added, where
+    forward is given one -> ReLU (or none); with fold_bn a biased conv that
+    already holds the BatchNorm (`conv`, `bn` as utils/fold_bn.py names
+    them)."""
 
     def __init__(self, cin: int, cout: int, k: int, stride: int = 1,
                  groups: int = 1, act: bool = True, fold_bn: bool = False,
@@ -70,39 +75,71 @@ class ConvBN(nn.Module):
         self.bn = None if fold_bn else nn.BatchNorm2d(cout, eps=eps)
         self.act = act
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if self._takes_grouped_kernel(x):
+    def forward(self, x: torch.Tensor,
+                shortcut: Optional[torch.Tensor] = None) -> torch.Tensor:
+        if shortcut is None and self._takes_grouped_kernel(x):
             profiling.count("conv/grouped_kernel", 1)
             return grouped_conv3x3.grouped_conv3x3(
                 x, self.conv.weight, self.conv.bias, self.conv.stride[0],
                 self.act)
+        if self._takes_dense_kernel(x, shortcut):
+            profiling.count("conv/dense_kernel", 1)
+            return dense_conv.dense_conv(
+                x, self.conv.weight, self.conv.bias, shortcut,
+                self.conv.stride[0], self.act)
         x = self.conv(x)
         if self.bn is not None:
             x = self.bn(x)
+        if shortcut is not None:
+            x = x + shortcut
         return F.relu(x) if self.act else x
 
-    def _takes_grouped_kernel(self, x: torch.Tensor) -> bool:
-        """Whether this call runs tfssd::grouped_conv3x3 (the bottleneck's
-        grouped 3x3 with BatchNorm folded, bias and ReLU in the kernel):
-        a 3x3, padding 1, dilation 1 conv of stride 1 or 2 with a bias,
-        groups of a width the kernel takes and as many outputs as inputs,
-        computed in the parameters' dtype, on a contiguous input that is
-        float32 on a card or lies on the CPU (the plain version), with
-        nothing for autograd to record."""
+    def _kernel_can_run(self, x: torch.Tensor,
+                        shortcut: Optional[torch.Tensor]) -> bool:
+        """What both kernels ask of a call (BatchNorm folded, the bias and
+        the ReLU in the kernel): a conv with a bias, padding k // 2,
+        dilation 1 and a square stride, computed in the parameters' dtype,
+        on contiguous tensors of x's dtype and device that are float32 on a
+        card or lie on the CPU (the plain versions), with nothing for
+        autograd to record."""
         conv = self.conv
-        return (conv.bias is not None and conv.groups > 1
-                and conv.kernel_size == (3, 3) and conv.padding == (1, 1)
+        ts = (x, conv.weight, conv.bias) + (
+            () if shortcut is None else (shortcut,))
+        return (conv.bias is not None
+                and conv.padding == tuple(k // 2 for k in conv.kernel_size)
                 and conv.dilation == (1, 1)
                 and conv.stride[0] == conv.stride[1]
-                and conv.stride[0] in grouped_conv3x3.STRIDES
-                and conv.in_channels == conv.out_channels
-                and conv.in_channels // conv.groups in grouped_conv3x3.WIDTHS
                 and conv.compute_dtype is None
-                and x.dtype == conv.weight.dtype and x.is_contiguous()
+                and all(t.dtype == x.dtype and t.device == x.device
+                        and t.is_contiguous() for t in ts)
                 and (x.device.type == "cpu" or (
                     x.is_cuda and x.dtype == torch.float32))
                 and not (torch.is_grad_enabled() and any(
-                    t.requires_grad for t in (x, conv.weight, conv.bias))))
+                    t.requires_grad for t in ts)))
+
+    def _takes_dense_kernel(self, x: torch.Tensor,
+                            shortcut: Optional[torch.Tensor]) -> bool:
+        """Whether this call runs tfssd::dense_conv (a bottleneck's
+        groups-1 conv; the shortcut too in the kernel): a 1x1 or 3x3 conv
+        of stride 1 or 2 that _kernel_can_run."""
+        conv = self.conv
+        k = conv.kernel_size[0]
+        return (conv.groups == 1 and conv.kernel_size == (k, k)
+                and k in dense_conv.SIDES
+                and conv.stride[0] in dense_conv.STRIDES
+                and self._kernel_can_run(x, shortcut))
+
+    def _takes_grouped_kernel(self, x: torch.Tensor) -> bool:
+        """Whether this call runs tfssd::grouped_conv3x3 (the bottleneck's
+        grouped 3x3): a 3x3 conv of stride 1 or 2 with groups of a width
+        the kernel takes and as many outputs as inputs that
+        _kernel_can_run."""
+        conv = self.conv
+        return (conv.groups > 1 and conv.kernel_size == (3, 3)
+                and conv.stride[0] in grouped_conv3x3.STRIDES
+                and conv.in_channels == conv.out_channels
+                and conv.in_channels // conv.groups in grouped_conv3x3.WIDTHS
+                and self._kernel_can_run(x, None))
 
 
 class Bottleneck(nn.Module):
@@ -113,15 +150,14 @@ class Bottleneck(nn.Module):
         super().__init__()
         self.conv1 = ConvBN(cin, width, 1, **bn)
         self.conv2 = ConvBN(width, width, 3, stride, groups, **bn)
-        self.conv3 = ConvBN(width, cout, 1, act=False, **bn)
+        # conv3's ReLU follows the shortcut's add
+        self.conv3 = ConvBN(width, cout, 1, **bn)
         self.downsample = (ConvBN(cin, cout, 1, stride, act=False, **bn)
                            if stride != 1 or cin != cout else None)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = self.conv3(self.conv2(self.conv1(x)))
-        if self.downsample is not None:
-            x = self.downsample(x)
-        return F.relu(y + x)
+        shortcut = x if self.downsample is None else self.downsample(x)
+        return self.conv3(self.conv2(self.conv1(x)), shortcut)
 
 
 class ResNeXt(nn.Module):

@@ -17,8 +17,12 @@ utils/export.py.
                      TPU kernel)
   roi_align.py     — tfssd::roi_align, Mask R-CNN's multi-level RoIAlign
                      (csrc/roi_align.cu; no TPU kernel)
+  dense_conv.py    — tfssd::dense_conv, the ResNet trunks' groups-1 1x1
+                     and 3x3 convs with bias, shortcut add and ReLU
+                     (csrc/dense_conv.cu; no TPU kernel)
   build.py         — nvcc into build/tfssd_torch/, loaded with ctypes
 """
 
 from tfssd_torch.ops.kernels import (  # noqa: F401
-    classwise_keep, grouped_conv3x3, match_encode, nms_keep, roi_align)
+    classwise_keep, dense_conv, grouped_conv3x3, match_encode, nms_keep,
+    roi_align)
